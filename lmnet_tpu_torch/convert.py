@@ -7,6 +7,10 @@ arrays (``jax.device_get`` of the Flax variables gives that) and returns the
 HWIO to OIHW and dense kernels from (in, out) to (out, in). This mapping is
 the one ``tests/test_full_model_parity.py::_transplant`` uses against the
 reference source.
+
+Without ``'batch_stats'`` the running statistics are left out, so a tree
+shaped like the params, such as JAX's gradients, maps onto the names of the
+port's parameters (``dict(model.named_parameters())``).
 """
 
 from __future__ import annotations
@@ -36,11 +40,16 @@ def _put_raw_conv(sd, name, p):  # plain nn.Conv {kernel, bias} (SE fc)
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _sub(s, key):  # the batch_stats subtree, or None without batch_stats
+    return None if s is None else s[key]
+
+
 def _put_bn(sd, name, p, s):
     sd[f"{name}.weight"] = _t(p["scale"])
     sd[f"{name}.bias"] = _t(p["bias"])
-    sd[f"{name}.running_mean"] = _t(s["mean"])
-    sd[f"{name}.running_var"] = _t(s["var"])
+    if s is not None:
+        sd[f"{name}.running_mean"] = _t(s["mean"])
+        sd[f"{name}.running_var"] = _t(s["var"])
 
 
 def _put_ln(sd, name, p):
@@ -55,10 +64,10 @@ def _put_dense(sd, name, p):  # TorchDense {'dense': {kernel, bias}}
 
 def _put_rc(sd, tname, p, s):
     _put_conv(sd, f"{tname}.expand_conv.0", p["expand_conv"])
-    _put_bn(sd, f"{tname}.expand_conv.1", p["expand_bn"], s["expand_bn"])
+    _put_bn(sd, f"{tname}.expand_conv.1", p["expand_bn"], _sub(s, "expand_bn"))
     for br in ("large", "square", "ver", "hor"):
         sd[f"{tname}.{br}_conv.conv.weight"] = _oihw(p[f"{br}_conv"]["conv"]["kernel"])
-        _put_bn(sd, f"{tname}.{br}_conv.bn", p[f"{br}_bn"], s[f"{br}_bn"])
+        _put_bn(sd, f"{tname}.{br}_conv.bn", p[f"{br}_bn"], _sub(s, f"{br}_bn"))
     _put_raw_conv(sd, f"{tname}.se.fc1", p["se"]["fc1"])
     _put_raw_conv(sd, f"{tname}.se.fc2", p["se"]["fc2"])
     _put_conv(sd, f"{tname}.pointwise_conv.0", p["pointwise_conv"])
@@ -77,15 +86,15 @@ def _put_natt(sd, tname, p):
 
 
 def jax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """Train-mode JAX LMNet variables (numpy leaves) -> ``LMNet`` state dict."""
+    """Train-mode JAX LMNet variables (numpy leaves) -> ``LMNet`` state dict;
+    without ``'batch_stats'``, the parameters alone."""
     p = variables["params"]
-    s = variables["batch_stats"]
+    s = variables.get("batch_stats")
     sd: dict[str, torch.Tensor] = {}
     for i in range(1, 5):
-        _put_rc(sd, f"conv{i}.0", p[f"conv{i}_0"], s[f"conv{i}_0"])
-        _put_rc(sd, f"conv{i}.1", p[f"conv{i}_1"], s[f"conv{i}_1"])
-        _put_rc(sd, f"dconv{i}.0", p[f"dconv{i}_0"], s[f"dconv{i}_0"])
-        _put_rc(sd, f"dconv{i}.1", p[f"dconv{i}_1"], s[f"dconv{i}_1"])
+        for name in (f"conv{i}", f"dconv{i}"):
+            for j in (0, 1):
+                _put_rc(sd, f"{name}.{j}", p[f"{name}_{j}"], _sub(s, f"{name}_{j}"))
         _put_conv(sd, f"down{i}.0", p[f"down{i}"])
         _put_conv(sd, f"up{i}.1", p[f"up{i}"])
     g = p["gft"]
@@ -103,17 +112,17 @@ def jax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     _put_conv(sd, "skip1.convl.0", p["skip1"]["convl"])
     _put_conv(sd, "skip1.convs.0", p["skip1"]["convs"])
     _put_conv(sd, "skip1.fuse_conv.0", p["skip1"]["fuse_conv"])
-    _put_bn(sd, "skip1.fuse_conv.1", p["skip1"]["fuse_bn"], s["skip1"]["fuse_bn"])
+    _put_bn(sd, "skip1.fuse_conv.1", p["skip1"]["fuse_bn"], _sub(_sub(s, "skip1"), "fuse_bn"))
     for name in ("skip2", "skip3"):
         _put_conv(sd, f"{name}.convl.0", p[name]["convl"])
         _put_conv(sd, f"{name}.convm.0", p[name]["convm"])
         _put_conv(sd, f"{name}.convs.1", p[name]["convs"])
         _put_conv(sd, f"{name}.fuse_conv.0", p[name]["fuse_conv"])
-        _put_bn(sd, f"{name}.fuse_conv.1", p[name]["fuse_bn"], s[name]["fuse_bn"])
+        _put_bn(sd, f"{name}.fuse_conv.1", p[name]["fuse_bn"], _sub(_sub(s, name), "fuse_bn"))
     _put_conv(sd, "skip4.convl.0", p["skip4"]["convl"])
     _put_conv(sd, "skip4.convs.1", p["skip4"]["convs"])
     _put_conv(sd, "skip4.fuse_conv.0", p["skip4"]["fuse_conv"])
-    _put_bn(sd, "skip4.fuse_conv.1", p["skip4"]["fuse_bn"], s["skip4"]["fuse_bn"])
+    _put_bn(sd, "skip4.fuse_conv.1", p["skip4"]["fuse_bn"], _sub(_sub(s, "skip4"), "fuse_bn"))
     for i in range(1, 5):
         _put_natt(sd, f"natt{i}", p[f"natt{i}"])
     _put_conv(sd, "output_layer", p["output_layer"])

@@ -12,11 +12,13 @@ import torch
 
 
 def confusion_matrix(pred: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """(C, C) int64 confusion matrix; rows = target class, cols = predicted."""
+    """(C, C) int64 confusion matrix; rows = target class, cols = predicted.
+
+    A scatter-add into C*C bins: ``torch.bincount`` on a CUDA tensor reads
+    the largest index back to the host, a sync at every step."""
     idx = target.reshape(-1).long() * num_classes + pred.reshape(-1).long()
-    return torch.bincount(idx, minlength=num_classes * num_classes).reshape(
-        num_classes, num_classes
-    )
+    cm = torch.zeros(num_classes * num_classes, dtype=torch.int64, device=idx.device)
+    return cm.scatter_add_(0, idx, torch.ones_like(idx)).reshape(num_classes, num_classes)
 
 
 def derived_metrics(cm: torch.Tensor, task: str = "binary") -> dict[str, torch.Tensor]:

@@ -1,15 +1,26 @@
 """PyTorch building blocks for LM-Net, NHWC at every forward.
 
-Counterpart of ``lmnet_tpu/models/blocks.py``, for the eval forward and the
-train-mode parameter tree. Module attribute names follow the reference
-PyTorch model (``conv1.0.expand_conv.0``, ``natt1.att1.qkv``,
-``gft.attention.qkv``, ...), so a state dict converted from the JAX
-variables (``lmnet_tpu_torch/convert.py``) loads with ``strict=True``.
+Counterpart of ``lmnet_tpu/models/blocks.py``: the train-mode and eval
+forward of every block. Module attribute names follow the reference PyTorch
+model (``conv1.0.expand_conv.0``, ``natt1.att1.qkv``, ``gft.attention.qkv``,
+...), so a state dict converted from the JAX variables
+(``lmnet_tpu_torch/convert.py``) loads with ``strict=True``.
+
+As in JAX, the mode is an argument of each forward, not ``nn.Module``'s
+``training`` flag: ``train`` selects batch statistics in BatchNorm (and
+updates its running statistics), ``deterministic=False`` turns on dropout,
+drawn from an explicit ``torch.Generator``.
 
 Conv weights are stored OIHW as in ``nn.Conv2d``; every conv runs on an NCHW
-view of the NHWC activation (a permute, no copy). BatchNorm runs on its
-running statistics (eval mode). GELU is the tanh form by default, as in the
-JAX package (``LMNet.gelu_exact=False``); the erf form is not ported yet.
+view of the NHWC activation (a permute, no copy). GELU is the tanh form, as
+in the JAX package (``LMNet.gelu_exact=False``); the erf form is not ported
+yet.
+
+Dtypes follow flax: the activations carry the compute dtype (bf16 under
+``LMNet(dtype=torch.bfloat16)``), every float32 parameter is cast to it at
+its op, and BatchNorm/LayerNorm form their statistics in float32
+(E[x^2] - E[x]^2, clamped at 0) and normalise in float32 before casting
+back. No ``torch.autocast``: it would keep other ops in float32 than JAX.
 
 Parameters are created empty; ``init_`` fills each leaf from an explicit
 ``torch.Generator`` with the JAX package's init families: torch's
@@ -25,6 +36,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 from lmnet_tpu_torch.ops.nat_flat import nat_flat
@@ -32,6 +44,8 @@ from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corne
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
+DROPOUT = 0.1  # Mlp (reference core/modules.py:42-56)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -117,12 +131,24 @@ class Dense(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+def _stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax's ``_compute_stats``: float32 mean and biased variance
+    E[x^2] - E[x]^2, clamped at 0."""
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+    return mean, var
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) axis of an NHWC tensor.
+    """BatchNorm over the last (channel) axis of an NHWC tensor, as flax's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.
 
     Holds exactly the reference's ``weight``, ``bias``, ``running_mean`` and
-    ``running_var`` (no ``num_batches_tracked``); the variance is JAX's
-    biased one."""
+    ``running_var`` (no ``num_batches_tracked``). In train mode it
+    normalises with the batch statistics and moves the running ones toward
+    them with torch momentum 0.1, keeping JAX's *biased* variance (torch's
+    ``F.batch_norm`` would store the unbiased one)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -131,9 +157,54 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def forward(self, x, train: bool = False):
+        if not train:
+            return self.normalize(x, self.running_mean, self.running_var)
+        y, mean, var = self.train_forward(x)
+        self.update_stats(mean, var)
+        return y
+
+    def train_forward(self, x):
+        """Normalise with the batch statistics; returns (y, mean, var) and
+        leaves the running statistics alone."""
+        mean, var = _stats(x, (0, 1, 2))
+        return self.normalize(x, mean, var), mean, var
+
+    def normalize(self, x, mean, var):
+        inv = torch.rsqrt(var + BN_EPS) * self.weight
+        return ((x - mean) * inv + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def update_stats(self, mean, var) -> None:
+        m = BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, as flax's ``nn.LayerNorm(epsilon=1e-5)``:
+    float32 statistics, float32 normalisation, the result in x's dtype.
+    Parameters are ``nn.LayerNorm``'s ``weight`` and ``bias``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
     def forward(self, x):
-        inv = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        return ((x - self.running_mean) * inv + self.bias).to(x.dtype)
+        mean, var = _stats(x, -1)
+        y = (x - mean[..., None]) * (torch.rsqrt(var + LN_EPS)[..., None] * self.weight)
+        return (y + self.bias).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout as ``flax.linen.Dropout``: keep with probability
+    1 - p, scale kept values by 1 / (1 - p). The mask comes from
+    ``generator``, which must live on x's device."""
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator (deterministic=False)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Upsample2x(nn.Module):
@@ -154,6 +225,9 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         return self.bn(self.conv(x))
+
+    def train_forward(self, x):
+        return self.bn.train_forward(self.conv(x))
 
 
 class SE(nn.Module):
@@ -176,10 +250,19 @@ class ReparamConv(nn.Module):
     ``core/modules.py:525-657``): 1x1 expand + BN + hardswish -> sum of four
     depthwise branches (5x5, 3x3, 3x1, 1x3; each conv+BN) -> GELU -> SE ->
     1x1 pointwise -> + 1x1 shortcut of the input. ``structural_reparam``
-    fuses the branches into the deploy graph's one 5x5 depthwise conv."""
+    fuses the branches into the deploy graph's one 5x5 depthwise conv.
 
-    def __init__(self, cin: int, expand: int, cout: int):
+    ``remat`` (JAX's ``LMNet.rc_remat=True``): in train mode the block runs
+    under ``torch.utils.checkpoint``, so its backward recomputes the block
+    from its input instead of keeping the branch activations. The
+    checkpointed function returns its five batch statistics and the running
+    statistics are updated outside it: the recompute during the backward
+    would otherwise update them a second time.
+    """
+
+    def __init__(self, cin: int, expand: int, cout: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.expand_conv = nn.Sequential(Conv(cin, expand, 1), BatchNorm(expand))
         self.large_conv = ConvBN(expand, (5, 5))
         self.square_conv = ConvBN(expand, (3, 3))
@@ -189,23 +272,57 @@ class ReparamConv(nn.Module):
         self.pointwise_conv = nn.Sequential(Conv(expand, cout, 1))
         self.shortcut = nn.Sequential(Conv(cin, cout, 1))
 
-    def forward(self, x):
-        e = F.hardswish(self.expand_conv(x))
-        t = self.large_conv(e) + self.square_conv(e) + self.ver_conv(e) + self.hor_conv(e)
-        t = self.se(gelu(t))
+    def _branches(self):
+        return (self.large_conv, self.square_conv, self.ver_conv, self.hor_conv)
+
+    def _tail(self, x, branches):
+        t = self.se(gelu(branches[0] + branches[1] + branches[2] + branches[3]))
         return self.pointwise_conv(t) + self.shortcut(x)
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            e = F.hardswish(self.expand_conv(x))
+            return self._tail(x, [b(e) for b in self._branches()])
+        if self.remat:
+            out, stats = checkpoint(self._train_graph, x, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            out, stats = self._train_graph(x)
+        bns = [self.expand_conv[1]] + [b.bn for b in self._branches()]
+        for bn, (mean, var) in zip(bns, stats):
+            bn.update_stats(mean, var)
+        return out
+
+    def _train_graph(self, x):
+        """Train-mode block on batch statistics; returns (out, the five
+        (mean, var) pairs: expand BN, then the four branch BNs)."""
+        e, mean, var = self.expand_conv[1].train_forward(self.expand_conv[0](x))
+        e = F.hardswish(e)
+        stats, ys = [(mean.detach(), var.detach())], []
+        for b in self._branches():
+            y, mean, var = b.train_forward(e)
+            ys.append(y)
+            stats.append((mean.detach(), var.detach()))
+        return self._tail(x, ys), stats
 
 
 class Mlp(nn.Module):
-    """Two linears with GELU between (dropout is off in eval)."""
+    """Two linears with GELU between; dropout 0.1 after the GELU and after
+    the second linear unless ``deterministic``."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = Dense(dim, hidden)
         self.fc2 = Dense(hidden, dim)
 
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
+        h = gelu(self.fc1(x))
+        if not deterministic:
+            h = dropout(h, DROPOUT, generator)
+        y = self.fc2(h)
+        if not deterministic:
+            y = dropout(y, DROPOUT, generator)
+        return y
 
 
 class PatchEmbed(nn.Module):
@@ -250,18 +367,18 @@ class GFT(nn.Module):
     def __init__(self, dim: int, cout: int, num_heads: int = 12):
         super().__init__()
         self.patchembedding = PatchEmbed(dim, dim)
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim)
         self.attention = GlobalAttention(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, 2 * dim)
         self.conv = nn.Sequential(Conv(dim, cout, 1))
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
         B, H, W, _ = x.shape
         emb = self.patchembedding(x)
         tokens = emb.reshape(B, H * W, -1)
         att = self.attention(self.norm1(tokens)) + tokens
-        out = self.mlp(self.norm2(att)) + att
+        out = self.mlp(self.norm2(att), deterministic, generator) + att
         return self.conv(out.reshape(B, H, W, -1))
 
 
@@ -291,8 +408,9 @@ class M2Skip(nn.Module):
             raise ValueError(f"mode must be 'bottom' or 'top', not {mode!r}")
         self.fuse_conv = nn.Sequential(Conv(2 * cout, cout, 3), BatchNorm(cout))
 
-    def forward(self, xl, xs):
-        return gelu(self.fuse_conv(torch.cat([self.convl(xl), self.convs(xs)], dim=-1)))
+    def forward(self, xl, xs, train: bool = False):
+        x = self.fuse_conv[0](torch.cat([self.convl(xl), self.convs(xs)], dim=-1))
+        return gelu(self.fuse_conv[1](x, train))
 
 
 class M3Skip(nn.Module):
@@ -307,20 +425,24 @@ class M3Skip(nn.Module):
         self.convs = nn.Sequential(Upsample2x(), Conv(cs, cm, 3))
         self.fuse_conv = nn.Sequential(Conv(3 * cm, cm, 3), BatchNorm(cm))
 
-    def forward(self, xl, xm, xs):
+    def forward(self, xl, xm, xs, train: bool = False):
         x = torch.cat([self.convl(xl), self.convm(xm), self.convs(xs)], dim=-1)
-        return gelu(self.fuse_conv(x))
+        return gelu(self.fuse_conv[1](self.fuse_conv[0](x), train))
 
 
 class NeighborhoodAttention2D(nn.Module):
     """NAT layer (kernel 3): qkv and proj linears around neighborhood
     attention with a relative position bias (the NATTEN module's
-    parameters). Runs ``ops/nat_flat.py``: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU one."""
+    parameters). ``backend`` 'flat' runs ``ops/nat_flat.py`` (the CUDA
+    kernels, forward and backward, on CUDA tensors; the plain version on CPU
+    ones); 'plain' runs ``ops/nat.py``."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, backend: str = "flat"):
         super().__init__()
+        if backend not in ("flat", "plain"):
+            raise ValueError(f"nat backend must be 'flat' or 'plain', not {backend!r}")
         self.num_heads = num_heads
+        self.backend = backend
         self.qkv = Dense(dim, 3 * dim)
         self.proj = Dense(dim, dim)
         self.rpb = nn.Parameter(torch.empty(num_heads, 5, 5))
@@ -329,8 +451,12 @@ class NeighborhoodAttention2D(nn.Module):
         _trunc_normal_(self.rpb, 0.02, g)
 
     def forward(self, x):
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
-        return self.proj(nat(q, k, v, self.rpb, self.num_heads, "flat"))
+        # weight-sliced qkv: three contiguous outputs that reshape to the
+        # flat NAT layout without a copy
+        C = x.shape[-1]
+        w, b = self.qkv.weight.to(x.dtype), self.qkv.bias.to(x.dtype)
+        q, k, v = (F.linear(x, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C]) for i in range(3))
+        return self.proj(nat(q, k, v, self.rpb, self.num_heads, self.backend))
 
 
 def nat(q, k, v, rpb, num_heads: int, backend: str):
@@ -351,15 +477,15 @@ class NeighborhoodTransformer(nn.Module):
     """NAT block: patch embed -> LN -> NAT (+res on the embedding) -> LN ->
     MLP (+res)."""
 
-    def __init__(self, dim: int, num_heads: int = 12):
+    def __init__(self, dim: int, num_heads: int = 12, nat_backend: str = "flat"):
         super().__init__()
         self.patchembedding = PatchEmbed(dim, dim)
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.att1 = NeighborhoodAttention2D(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim)
+        self.att1 = NeighborhoodAttention2D(dim, num_heads, nat_backend)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, 2 * dim)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
         emb = self.patchembedding(x)
         att = self.att1(self.norm1(emb)) + emb
-        return self.mlp(self.norm2(att)) + att
+        return self.mlp(self.norm2(att), deterministic, generator) + att

@@ -1,4 +1,4 @@
-"""LM-Net in PyTorch: the train-mode parameter tree, the eval forward, and
+"""LM-Net in PyTorch: the train-mode and eval forward, and
 ``structural_reparam``.
 
 Counterpart of ``lmnet_tpu/models/lm_net.py``. The graph (reference
@@ -38,22 +38,37 @@ _BRANCHES = ("large", "square", "ver", "hor")
 
 
 class LMNet(nn.Module):
-    """The LM-Net segmentation model (train-mode parameters, eval forward).
+    """The LM-Net segmentation model.
 
     Args:
       num_classes: output channels of the 1x1 head.
       filters: per-stage channel plan.
       num_heads: heads of the GFT and NAT attention.
       generator: the ``torch.Generator`` every initial weight is drawn from
-        (a fresh one seeded 0 when omitted). Parameters are made on the CPU;
-        move the model with ``.to(device)``.
+        (a fresh one seeded 0 when omitted). Parameters are made on the CPU
+        in float32; move the model with ``.to(device)``.
+      dtype: compute dtype of the activations (``torch.bfloat16`` is the
+        CLI's ``--apm``); None keeps the input's. Parameters stay float32
+        and are cast at each op; the logits come back float32.
+      nat_backend: 'flat' (``ops/nat_flat.py``: the CUDA kernels on a card)
+        or 'plain' (``ops/nat.py``).
+      rc_remat: recompute every ReparamConv in the backward
+        (``torch.utils.checkpoint``), as JAX's default ``rc_remat=True``.
+        JAX's ``'branches'`` policy is not ported.
     """
 
     def __init__(self, num_classes: int = 2, filters=(12, 24, 48, 96, 192),
-                 num_heads: int = 12, generator: torch.Generator | None = None):
+                 num_heads: int = 12, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None, nat_backend: str = "flat",
+                 rc_remat: bool = True):
         super().__init__()
+        if not isinstance(rc_remat, bool):
+            raise ValueError(f"rc_remat takes True or False; {rc_remat!r} is not ported")
+        self.dtype = dtype
         f = tuple(filters)
-        rc = ReparamConv
+
+        def rc(cin, expand, cout):
+            return ReparamConv(cin, expand, cout, remat=rc_remat)
 
         self.conv1 = nn.Sequential(rc(3, f[1], f[0]), rc(f[0], f[1], f[0]))
         self.down1 = nn.Sequential(Conv(f[0], f[1], 3, stride=2))
@@ -71,10 +86,10 @@ class LMNet(nn.Module):
         self.skip3 = M3Skip((f[0], f[1], f[2]))
         self.skip4 = M2Skip((f[0], f[1]), "top")
 
-        self.natt1 = NeighborhoodTransformer(f[3], num_heads)
-        self.natt2 = NeighborhoodTransformer(f[2], num_heads)
-        self.natt3 = NeighborhoodTransformer(f[1], num_heads)
-        self.natt4 = NeighborhoodTransformer(f[0], num_heads)
+        self.natt1 = NeighborhoodTransformer(f[3], num_heads, nat_backend)
+        self.natt2 = NeighborhoodTransformer(f[2], num_heads, nat_backend)
+        self.natt3 = NeighborhoodTransformer(f[1], num_heads, nat_backend)
+        self.natt4 = NeighborhoodTransformer(f[0], num_heads, nat_backend)
 
         def up(cin, cout):
             return nn.Sequential(Upsample2x(), Conv(cin, cout, 3))
@@ -96,28 +111,46 @@ class LMNet(nn.Module):
                 if hasattr(m, "init_"):
                     m.init_(g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval-mode logits, (B, H, W, num_classes) float32, from NHWC ``x``."""
-        x1 = self.conv1(x)
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        deterministic: bool | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """Logits, (B, H, W, num_classes) float32, from NHWC ``x``.
+
+        ``train``: BatchNorm on batch statistics, updating the running ones.
+        ``deterministic`` (default ``not train``): dropout off; with it on,
+        the masks are drawn from ``generator`` (on x's device).
+        """
+        det = (not train) if deterministic is None else deterministic
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+
+        def rc2(stage, h):
+            return stage[1](stage[0](h, train), train)
+
+        x1 = rc2(self.conv1, x)
         xd1 = self.down1(x1)
-        x2 = self.conv2(xd1)
+        x2 = rc2(self.conv2, xd1)
         xd2 = self.down2(x2)
-        x3 = self.conv3(xd2)
+        x3 = rc2(self.conv3, xd2)
         xd3 = self.down3(x3)
-        x4 = self.conv4(xd3)
+        x4 = rc2(self.conv4, xd3)
         xd4 = self.down4(x4)
 
-        x5 = self.gft(pyramid_pool([x1, x2, x3, x4], xd4))
+        x5 = self.gft(pyramid_pool([x1, x2, x3, x4], xd4), det, generator)
 
-        x46 = self.natt1(self.skip1(x3, x4))
-        x37 = self.natt2(self.skip2(x2, x3, x4))
-        x28 = self.natt3(self.skip3(x1, x2, x3))
-        x19 = self.natt4(self.skip4(x1, x2))
+        x46 = self.natt1(self.skip1(x3, x4, train), det, generator)
+        x37 = self.natt2(self.skip2(x2, x3, x4, train), det, generator)
+        x28 = self.natt3(self.skip3(x1, x2, x3, train), det, generator)
+        x19 = self.natt4(self.skip4(x1, x2, train), det, generator)
 
-        x6 = self.dconv1(self.up1(x5) + x46)
-        x7 = self.dconv2(self.up2(x6) + x37)
-        x8 = self.dconv3(self.up3(x7) + x28)
-        x9 = self.dconv4(self.up4(x8) + x19)
+        x6 = rc2(self.dconv1, self.up1(x5) + x46)
+        x7 = rc2(self.dconv2, self.up2(x6) + x37)
+        x8 = rc2(self.dconv3, self.up3(x7) + x28)
+        x9 = rc2(self.dconv4, self.up4(x8) + x19)
         return self.output_layer(x9).float()
 
 

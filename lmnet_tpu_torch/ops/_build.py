@@ -50,21 +50,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    path = library_path(name)
-    if not path.exists():
+def build(*names: str) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one nvcc
+    process per source, all started together; raise if any fails."""
+    jobs = []
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # compile to a private name, then rename: a concurrent process never
         # sees a half-written library
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, path, tmp, proc))
+    failed = []
+    for name, path, tmp, proc in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    return ctypes.CDLL(str(path))
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}\n{err}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))
