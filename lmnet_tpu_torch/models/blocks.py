@@ -40,12 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 from lmnet_tpu_torch.ops.nat_flat import nat_flat
+from lmnet_tpu_torch.ops.rc_train import rc_branch_act
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
 DROPOUT = 0.1  # Mlp (reference core/modules.py:42-56)
+RC_TRAIN_BACKENDS = ("auto", "xla", "fused", "packed")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -226,9 +228,6 @@ class ConvBN(nn.Module):
     def forward(self, x):
         return self.bn(self.conv(x))
 
-    def train_forward(self, x):
-        return self.bn.train_forward(self.conv(x))
-
 
 class SE(nn.Module):
     """Squeeze-and-excitation (reduction 4, ReLU, hard sigmoid)."""
@@ -239,8 +238,11 @@ class SE(nn.Module):
         self.fc1 = Conv(channels, mid, 1, init="kaiming_normal")
         self.fc2 = Conv(mid, channels, 1, init="kaiming_normal")
 
-    def forward(self, x):
-        s = x.mean(dim=(1, 2), keepdim=True)
+    def forward(self, x, pooled=None):
+        """``pooled``: the (B, 1, 1, C) global mean of x when the caller has
+        it already (the fused train-mode block takes it from its kernel's
+        channel sums), in x's dtype."""
+        s = x.mean(dim=(1, 2), keepdim=True) if pooled is None else pooled
         s = F.hardsigmoid(self.fc2(F.relu(self.fc1(s))))
         return x * s
 
@@ -258,11 +260,27 @@ class ReparamConv(nn.Module):
     checkpointed function returns its five batch statistics and the running
     statistics are updated outside it: the recompute during the backward
     would otherwise update them a second time.
+
+    ``train_backend`` (JAX's ``rc_train_backend``) picks the train-mode
+    branch graph; every choice computes the same function. 'auto' is
+    'xla': the four branch convs and BNs in plain torch. 'fused':
+    ``ops/rc_train.py::rc_branch_act``, the batch statistics from the B6
+    kernel folded into one 5x5 conv run by the B5 kernel, which also gives
+    the SE its channel sums (the plain graph on CPU tensors). 'packed': the
+    four kernels zero-padded to 5x5 and stacked into one grouped conv.
+    JAX also gates 'fused' on its TPU layout (H % 8, W * expand % 128) and
+    quietly takes the branch graph elsewhere; the port takes it at every
+    shape.
     """
 
-    def __init__(self, cin: int, expand: int, cout: int, remat: bool = False):
+    def __init__(self, cin: int, expand: int, cout: int, remat: bool = False,
+                 train_backend: str = "auto"):
         super().__init__()
+        if train_backend not in RC_TRAIN_BACKENDS:
+            raise ValueError(f"rc_train_backend must be one of {RC_TRAIN_BACKENDS}, "
+                             f"not {train_backend!r}")
         self.remat = remat
+        self.train_backend = "xla" if train_backend == "auto" else train_backend
         self.expand_conv = nn.Sequential(Conv(cin, expand, 1), BatchNorm(expand))
         self.large_conv = ConvBN(expand, (5, 5))
         self.square_conv = ConvBN(expand, (3, 3))
@@ -298,12 +316,42 @@ class ReparamConv(nn.Module):
         (mean, var) pairs: expand BN, then the four branch BNs)."""
         e, mean, var = self.expand_conv[1].train_forward(self.expand_conv[0](x))
         e = F.hardswish(e)
-        stats, ys = [(mean.detach(), var.detach())], []
-        for b in self._branches():
-            y, mean, var = b.train_forward(e)
-            ys.append(y)
+        stats = [(mean.detach(), var.detach())]
+        if self.train_backend == "fused":
+            B, H, W, C = e.shape
+            bns = [b.bn for b in self._branches()]
+            t_flat, sums, mu, var = rc_branch_act(
+                e.reshape(B, H, W * C), *(b.conv.weight for b in self._branches()),
+                torch.stack([bn.weight for bn in bns]), torch.stack([bn.bias for bn in bns]),
+                C, BN_EPS,
+            )
+            stats += [(mu[i], var[i]) for i in range(4)]
+            pooled = (sums / (H * W)).to(x.dtype).reshape(B, 1, 1, C)
+            t = self.se(t_flat.reshape(B, H, W, C), pooled=pooled)
+            return self.pointwise_conv(t) + self.shortcut(x), stats
+        if self.train_backend == "packed":
+            ys = self._packed_branches(e)
+        else:
+            ys = [b.conv(e) for b in self._branches()]
+        out = []
+        for b, y in zip(self._branches(), ys):
+            y, mean, var = b.bn.train_forward(y)
+            out.append(y)
             stats.append((mean.detach(), var.detach()))
-        return self._tail(x, ys), stats
+        return self._tail(x, out), stats
+
+    def _packed_branches(self, e):
+        """The four branch convs as one grouped conv: each kernel zero-padded
+        to 5x5 (the same taps with the same centre), stacked so that group c
+        gives output channels 4c .. 4c+3, one per branch."""
+        C = e.shape[-1]
+        packed = torch.stack([
+            F.pad(b.conv.weight, ((5 - kw) // 2, (5 - kw) // 2, (5 - kh) // 2, (5 - kh) // 2))
+            for b, (kh, kw) in zip(self._branches(), ((5, 5), (3, 3), (3, 1), (1, 3)))
+        ], dim=1).reshape(4 * C, 1, 5, 5)
+        y = conv_nhwc(e, packed, groups=C)
+        y = y.reshape(*y.shape[:3], C, 4)
+        return [y[..., i] for i in range(4)]
 
 
 class Mlp(nn.Module):

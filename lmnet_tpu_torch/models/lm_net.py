@@ -55,12 +55,16 @@ class LMNet(nn.Module):
       rc_remat: recompute every ReparamConv in the backward
         (``torch.utils.checkpoint``), as JAX's default ``rc_remat=True``.
         JAX's ``'branches'`` policy is not ported.
+      rc_train_backend: the train-mode branch graph of every ReparamConv:
+        'auto' (= 'xla', plain torch), 'fused' (the B6 statistics and B5
+        conv kernels on a card, ``ops/rc_train.py``) or 'packed' (one
+        grouped conv); see ``blocks.ReparamConv``.
     """
 
     def __init__(self, num_classes: int = 2, filters=(12, 24, 48, 96, 192),
                  num_heads: int = 12, generator: torch.Generator | None = None,
                  dtype: torch.dtype | None = None, nat_backend: str = "flat",
-                 rc_remat: bool = True):
+                 rc_remat: bool = True, rc_train_backend: str = "auto"):
         super().__init__()
         if not isinstance(rc_remat, bool):
             raise ValueError(f"rc_remat takes True or False; {rc_remat!r} is not ported")
@@ -68,7 +72,8 @@ class LMNet(nn.Module):
         f = tuple(filters)
 
         def rc(cin, expand, cout):
-            return ReparamConv(cin, expand, cout, remat=rc_remat)
+            return ReparamConv(cin, expand, cout, remat=rc_remat,
+                               train_backend=rc_train_backend)
 
         self.conv1 = nn.Sequential(rc(3, f[1], f[0]), rc(f[0], f[1], f[0]))
         self.down1 = nn.Sequential(Conv(f[0], f[1], 3, stride=2))

@@ -1,0 +1,191 @@
+"""The train-mode ReparamConv branches fused: four depthwise convs, their
+batch-statistic BatchNorms, the sum, tanh GELU and the SE channel sums,
+without writing any branch out.
+
+Counterpart of ``lmnet_tpu/ops/pallas/rc_train.py`` (``rc_branch_stats``,
+``_fold_stats``, ``rc_branch_act`` and its ``custom_vjp``). Summing
+batch-normalised parallel depthwise branches is one combined depthwise conv,
+
+    sum_i BN_i(dw_i(e)) = dw_K(e) + b,
+    K = sum_i (gamma_i / sigma_i) embed_5x5(k_i),
+    b = sum_i (beta_i - gamma_i mu_i / sigma_i),
+
+with (mu_i, sigma_i) the batch statistics of branch i. So the forward is the
+statistics kernel ``csrc/rc_stats.cu`` (``rc_branch_stats``), the fold
+(``ops/reparam.py::fuse_reparam_branches`` with the batch statistics), and
+the B5 kernel ``csrc/rc_dw_gelu.cu`` (``ops/rc_flat.py::dw_gelu_flat``).
+The backward saves only the primals and differentiates the plain branch
+graph, ``rc_branch_act_plain``, as JAX's ``_rc_bwd`` does; mu and var feed
+only the running-statistics update and get no gradient. On CPU tensors
+``rc_branch_act`` is the plain graph itself. Kernels are OIHW depthwise:
+k5 (C, 1, 5, 5), k3 (C, 1, 3, 3), kv (C, 1, 3, 1), kh (C, 1, 1, 3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from lmnet_tpu_torch.ops import _build
+from lmnet_tpu_torch.ops.rc_flat import _DTYPE_CODE, check_cuda, dw_gelu_flat
+from lmnet_tpu_torch.ops.reparam import fuse_reparam_branches
+
+BRANCHES = ("large", "square", "ver", "hor")  # the reference's sum order
+_SHAPES = ((5, 5), (3, 3), (3, 1), (1, 3))
+
+
+def _kernel():
+    lib = _build.load("rc_stats")
+    fn, ws = lib.lmnet_rc_stats, lib.lmnet_rc_stats_workspace
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p] * 7 + [i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        ws.argtypes = [i, i, i, i]
+        ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def _check_shapes(e_flat, kernels, C: int) -> tuple[int, int, int]:
+    """Validate the flat layout and the four branch kernels; returns (B, H, W)."""
+    if e_flat.dim() != 3 or e_flat.shape[2] % C:
+        raise ValueError(f"e must be (B, H, W*{C}), got {tuple(e_flat.shape)}")
+    for k, (kh, kw) in zip(kernels, _SHAPES):
+        if tuple(k.shape) != (C, 1, kh, kw):
+            raise ValueError(f"branch kernel must be ({C}, 1, {kh}, {kw}), got {tuple(k.shape)}")
+    B, H, WC = e_flat.shape
+    return B, H, WC // C
+
+
+def _branch_outputs(e_flat, kernels, C: int, dtype):
+    """The four branch convs of NHWC e (viewed NCHW) in ``dtype``, NCHW."""
+    B, H, WC = e_flat.shape
+    e = e_flat.reshape(B, H, WC // C, C).permute(0, 3, 1, 2).to(dtype)
+    return [F.conv2d(e, k.to(dtype), padding=(kh // 2, kw // 2), groups=C)
+            for k, (kh, kw) in zip(kernels, _SHAPES)]
+
+
+def rc_branch_stats(e_flat, k5, k3, kv, kh, C: int) -> torch.Tensor:
+    """(4, 2, C) float32: per branch (5x5, 3x3, 3x1, 1x3; no bias, zero
+    padding) the sum and the sum of squares of its output over B*H*W, the
+    branch outputs never written out. JAX returns (8, W*C) flat
+    accumulators; ``_fold_stats`` there folds them over W.
+
+    On CUDA tensors it launches ``csrc/rc_stats.cu`` (one more in
+    ``rc_branch_stats.launches``; two calls give bitwise-equal results). On
+    CPU tensors it is ``rc_branch_stats_plain``.
+    """
+    kernels = (k5, k3, kv, kh)
+    B, H, W = _check_shapes(e_flat, kernels, C)
+    if e_flat.device.type == "cpu":
+        return rc_branch_stats_plain(e_flat, *kernels, C)
+    kernels = [k.float().contiguous() for k in kernels]
+    check_cuda("rc_branch_stats", e_flat, *kernels)
+    fn, ws = _kernel()
+    n_part = ws(B, H, W, C)
+    if n_part < 0:
+        raise ValueError(f"rc_stats does not take B={B} H={H} W={W} C={C}")
+    f32 = dict(dtype=torch.float32, device=e_flat.device)
+    out = torch.empty(4, 2, C, **f32)
+    part = torch.empty(n_part, **f32)
+    with torch.cuda.device(e_flat.device):
+        err = fn(e_flat.data_ptr(), *(k.data_ptr() for k in kernels), out.data_ptr(),
+                 part.data_ptr(), B, H, W, C, _DTYPE_CODE[e_flat.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rc_stats launch failed: CUDA error {err}")
+    rc_branch_stats.launches += 1
+    return out
+
+
+def rc_branch_stats_plain(e_flat, k5, k3, kv, kh, C: int) -> torch.Tensor:
+    """The plain version of ``rc_branch_stats``: the four convs in float32,
+    then their sums and sums of squares."""
+    _check_shapes(e_flat, (k5, k3, kv, kh), C)
+    ys = _branch_outputs(e_flat, [k.float() for k in (k5, k3, kv, kh)], C, torch.float32)
+    return torch.stack([torch.stack([y.sum(dim=(0, 2, 3)), y.square().sum(dim=(0, 2, 3))])
+                        for y in ys])
+
+
+def _fold_stats(stats: torch.Tensor, N: int):
+    """(4, 2, C) sums -> (4, C) mu and biased var, max(E[y^2] - E[y]^2, 0)."""
+    mu = stats[:, 0] / N
+    return mu, torch.clamp(stats[:, 1] / N - mu.square(), min=0.0)
+
+
+def rc_branch_act_plain(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float = 1e-5):
+    """The plain branch graph (JAX's ``_rc_ref_jnp``): the four branch convs
+    in e's dtype, float32 batch-statistic BN (biased variance, clamped at
+    0), the float32 sum, tanh GELU cast to e's dtype, and the (B, C) float32
+    channel sums of that t. Returns (t_flat, sums, mu, var); mu and var are
+    (4, C) float32, detached."""
+    B, H, W = _check_shapes(e_flat, (k5, k3, kv, kh), C)
+    z, mus, vs = None, [], []
+    for i, y in enumerate(_branch_outputs(e_flat, (k5, k3, kv, kh), C, e_flat.dtype)):
+        yf = y.float()
+        mean = yf.mean(dim=(0, 2, 3))
+        var = torch.clamp(yf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+        bn = ((yf - mean[:, None, None]) * (torch.rsqrt(var + eps) * gamma[i])[:, None, None]
+              + beta[i][:, None, None])
+        z = bn if z is None else z + bn
+        mus.append(mean.detach())
+        vs.append(var.detach())
+    t = F.gelu(z, approximate="tanh").to(e_flat.dtype)
+    t_flat = t.permute(0, 2, 3, 1).reshape(B, H, W * C)
+    return t_flat, t.float().sum(dim=(2, 3)), torch.stack(mus), torch.stack(vs)
+
+
+def _fused_forward(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float):
+    """Statistics kernel -> fold -> B5 kernel."""
+    B, H, W = _check_shapes(e_flat, (k5, k3, kv, kh), C)
+    mu, var = _fold_stats(rc_branch_stats(e_flat, k5, k3, kv, kh, C), B * H * W)
+    branches = {
+        name: dict(kernel=k.float(), scale=gamma[i], bias=beta[i], mean=mu[i], var=var[i])
+        for i, (name, k) in enumerate(zip(BRANCHES, (k5, k3, kv, kh)))
+    }
+    K, b = fuse_reparam_branches(branches, 5, eps)
+    t_flat, sums = dw_gelu_flat(e_flat, K, b, C)
+    return t_flat, sums, mu, var
+
+
+class _RcBranchAct(torch.autograd.Function):
+    """The fused forward; the backward differentiates the plain branch graph
+    from the saved primals (JAX's ``_rc_fwd`` / ``_rc_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, e_flat, k5, k3, kv, kh, gamma, beta, C, eps):
+        ctx.save_for_backward(e_flat, k5, k3, kv, kh, gamma, beta)
+        ctx.config = (C, eps)
+        t_flat, sums, mu, var = _fused_forward(e_flat, k5, k3, kv, kh, gamma, beta, C, eps)
+        ctx.mark_non_differentiable(mu, var)
+        return t_flat, sums, mu, var
+
+    @staticmethod
+    def backward(ctx, dt, dsums, _dmu, _dvar):
+        prim = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            t_flat, sums, _, _ = rc_branch_act_plain(*prim, *ctx.config)
+        grads = torch.autograd.grad((t_flat, sums), prim, (dt, dsums))
+        return (*grads, None, None)
+
+
+def rc_branch_act(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float = 1e-5):
+    """Fused four-branch depthwise + batch-statistic BN + sum + tanh GELU on
+    flat (B, H, W*C) ``e_flat``; differentiable in every tensor argument.
+
+    ``gamma``/``beta``: (4, C) BN affine parameters in branch order (5x5,
+    3x3, 3x1, 1x3). Returns (t_flat (B, H, W*C) in e's dtype, sums (B, C)
+    float32, mu (4, C), var (4, C)): the SE channel sums of t, and the batch
+    statistics for the caller's running-statistics update (not
+    differentiable). On CUDA tensors the forward runs the two kernels; on
+    CPU tensors it is ``rc_branch_act_plain``.
+    """
+    if e_flat.device.type == "cpu":
+        return rc_branch_act_plain(e_flat, k5, k3, kv, kh, gamma, beta, C, eps)
+    return _RcBranchAct.apply(e_flat, k5, k3, kv, kh, gamma, beta, C, eps)
+
+
+rc_branch_stats.launches = 0

@@ -1,3 +1,8 @@
-from lmnet_tpu_torch.serve.engine import deploy_forward, serving_evaluate
+from lmnet_tpu_torch.serve.engine import (
+    autoselect_backends,
+    deploy_forward,
+    pick_fastest,
+    serving_evaluate,
+)
 
-__all__ = ["deploy_forward", "serving_evaluate"]
+__all__ = ["autoselect_backends", "deploy_forward", "pick_fastest", "serving_evaluate"]

@@ -4,21 +4,24 @@ deploy state dict, and ``serving_evaluate`` over a loader.
 Counterpart of ``lmnet_tpu/serve/engine.py`` (``deploy_forward``,
 ``serving_evaluate``). Take a train-mode ``LMNet`` state dict,
 ``structural_reparam`` it, and call ``deploy_forward``. NAT runs through the
-CUDA kernel (``nat_backend='flat'``) on the card; everything else is plain
-torch. Dtypes follow the JAX engine: the activations carry the compute dtype
-(bf16 when serving), every weight is cast to it at its op, BatchNorm's
-scale is formed in float32 first, and the SE squeeze stays in the compute
-dtype.
+CUDA kernel (``nat_backend='flat'``) on the card, and the ReparamConv block
+through the plain torch graph (``rc_backend='xla'``, the JAX engine's name),
+the B5 kernel (``'flat'``, ``ops/rc_flat.py``) or the two-pass B4 kernel
+(``'pallas'``, ``ops/rc_kernel.py``); everything else is plain torch.
+``rc_backend='auto'`` in ``serving_evaluate`` times the candidates on the
+first batch (``autoselect_backends``). Dtypes follow the JAX engine: the
+activations carry the compute dtype (bf16 when serving), every weight is
+cast to it at its op, BatchNorm's scale is formed in float32 first, and the
+SE squeeze stays in the compute dtype.
 
-Left out here: the int8 NATT interiors, LN folding, composed skips, the
-backend autotune and the device mesh (all off by default in JAX), and the
-'pallas'/'flat' ReparamConv kernels (``rc_backend='xla'`` is the plain torch
-block).
+Left out here: the int8 NATT interiors, LN folding, composed skips and the
+device mesh (all off by default in JAX).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+import time
+from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -40,7 +43,11 @@ from lmnet_tpu_torch.models.blocks import (
     nat,
 )
 from lmnet_tpu_torch.models.lm_net import structural_reparam
+from lmnet_tpu_torch.ops.rc_flat import fold_rc_flat_weights, fused_rc_block
+from lmnet_tpu_torch.ops.rc_kernel import fold_rc_weights, fused_reparam_conv
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
+
+RC_BACKENDS = ("xla", "flat", "pallas")
 
 Tensors = Mapping[str, torch.Tensor]
 
@@ -114,9 +121,13 @@ def _natt(sd: Tensors, name: str, x, num_heads: int, nat_backend: str):
     return _mlp(sd, f"{name}.mlp", _ln(sd, f"{name}.norm2", att)) + att
 
 
-def _rc(sd: Tensors, name: str, h):
+def _rc(sd: Tensors, name: str, h, rc_backend: str):
     """Deploy ReparamConv: expand + BN + hardswish -> fused 5x5 depthwise +
     GELU -> SE -> pointwise + shortcut."""
+    if rc_backend == "flat":
+        return fused_rc_block(h, fold_rc_flat_weights(sd, name)).to(h.dtype)
+    if rc_backend == "pallas":
+        return fused_reparam_conv(h, fold_rc_weights(sd, name)).to(h.dtype)
     e = F.hardswish(_bn(sd, f"{name}.expand_conv.1", _conv(sd, f"{name}.expand_conv.0", h)))
     t = gelu(_conv(sd, f"{name}.fuse_conv", e, groups=e.shape[-1]))
     # the SE squeeze stays in the compute dtype (float32 SE weights would
@@ -141,18 +152,19 @@ def deploy_forward(
     ``variables``: the ``structural_reparam`` output, on x's device.
     ``nat_backend``: 'flat' (the CUDA kernel on a CUDA tensor) or 'plain',
     or a 4-tuple giving it per NAT stage (natt1 .. natt4, deepest first).
-    ``rc_backend``: 'xla' only (the plain torch ReparamConv; the name is the
-    JAX engine's).
+    ``rc_backend``: 'xla' (the plain torch ReparamConv; the name is the JAX
+    engine's), 'flat' (the B5 kernel with the 1x1 products as matmuls) or
+    'pallas' (the B4 kernel, which computes the whole block in two passes).
     """
-    if rc_backend != "xla":
-        raise ValueError(f"rc_backend {rc_backend!r} is not ported; use 'xla'")
+    if rc_backend not in RC_BACKENDS:
+        raise ValueError(f"rc_backend must be one of {RC_BACKENDS}, not {rc_backend!r}")
     nb = nat_backend if isinstance(nat_backend, tuple) else (nat_backend,) * 4
     if len(nb) != 4:
         raise ValueError(f"nat_backend tuple needs 4 entries, got {nb}")
     sd = variables
 
     def rc2(stage, h):
-        return _rc(sd, f"{stage}.1", _rc(sd, f"{stage}.0", h))
+        return _rc(sd, f"{stage}.1", _rc(sd, f"{stage}.0", h, rc_backend), rc_backend)
 
     x1 = rc2("conv1", x)
     xd1 = _conv(sd, "down1.0", x1, 2)
@@ -187,6 +199,87 @@ def deploy_forward(
     return _conv(sd, "output_layer", x9).float()
 
 
+# (shape, dtype, heads, rc candidates, nat candidates) -> (the chosen pair,
+# the timing table it was chosen from, seconds per forward), for the life
+# of the process, as in JAX
+AUTOTUNE_CACHE: dict = {}
+
+
+def pick_fastest(timings: Mapping[tuple, float], default=("xla", "plain")) -> tuple:
+    """The (rc, nat) pair with the smallest time; ``default`` for an empty
+    table."""
+    if not timings:
+        return default
+    return min(timings, key=timings.get)
+
+
+def _forward_seconds(deploy_vars: Tensors, x: torch.Tensor, num_heads: int,
+                     iters: int) -> Callable[[str, str], float]:
+    """time_fn(rc, nat): seconds per ``deploy_forward`` after one warm-up
+    call, by CUDA events on a CUDA tensor, by the host clock on a CPU one."""
+    def time_fn(rc, nat):
+        def run():
+            return deploy_forward(deploy_vars, x, num_heads=num_heads,
+                                  nat_backend=nat, rc_backend=rc)
+
+        with torch.inference_mode():
+            run()
+            if x.device.type != "cuda":
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    run()
+                return (time.perf_counter() - t0) / iters
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                run()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1000 / iters
+
+    return time_fn
+
+
+def autoselect_backends(
+    deploy_vars: Tensors,
+    x: torch.Tensor,
+    num_heads: int = 12,
+    rc_candidates=("xla", "flat"),
+    nat_candidates=("flat", "plain"),
+    iters: int = 8,
+    time_fn: Callable[[str, str], float] | None = None,
+) -> tuple:
+    """Time ``deploy_forward`` for every (rc, nat) candidate pair on the real
+    input and return the fastest pair. 'pallas' is not a default candidate
+    (as in JAX); pass it to try it. The choice and its timing table are
+    cached in ``AUTOTUNE_CACHE`` per (shape, dtype, num_heads, candidates).
+    ``time_fn(rc, nat) -> seconds`` can be injected.
+
+    Unlike JAX's sweep, a candidate that raises fails the call: a kernel
+    that cannot launch is never hidden behind another backend.
+    """
+    key = (tuple(x.shape), str(x.dtype), num_heads, tuple(rc_candidates),
+           tuple(nat_candidates))
+    if key not in AUTOTUNE_CACHE:
+        if time_fn is None:
+            time_fn = _forward_seconds(deploy_vars, x, num_heads, iters)
+        timings = {(rc, nat): time_fn(rc, nat)
+                   for rc in rc_candidates for nat in nat_candidates}
+        AUTOTUNE_CACHE[key] = (pick_fastest(timings), timings)
+    return AUTOTUNE_CACHE[key][0]
+
+
+def _resolve_auto(deploy_vars: Tensors, x: torch.Tensor, num_heads: int, rc_backend,
+                  nat_backend) -> tuple:
+    """Expand 'auto' in either slot through ``autoselect_backends``, pinning
+    a slot that is not 'auto' to its value."""
+    rc_cands = ("xla", "flat") if rc_backend == "auto" else (rc_backend,)
+    nat_cands = ("flat", "plain") if nat_backend == "auto" else (nat_backend,)
+    return autoselect_backends(deploy_vars, x, num_heads, rc_candidates=rc_cands,
+                               nat_candidates=nat_cands)
+
+
 def serving_evaluate(
     state: Tensors,
     loader: Iterable[tuple[np.ndarray, np.ndarray]],
@@ -199,7 +292,9 @@ def serving_evaluate(
 ) -> tuple[float, dict[str, float]]:
     """Evaluate a train-mode state dict through the serving path: reparam
     once, then ``deploy_forward`` in bf16 over the loader's (uint8 images,
-    uint8 masks) numpy batches, on the device the state lives on.
+    uint8 masks) numpy batches, on the device the state lives on. 'auto' in
+    either backend is resolved by ``autoselect_backends`` on the first batch
+    and kept for the rest.
 
     Returns (summed per-batch CE loss, derived metrics), as the JAX engine.
     """
@@ -213,8 +308,12 @@ def serving_evaluate(
                 torch.from_numpy(images).to(device), torch.from_numpy(masks).to(device),
                 out_size=img_size,
             )
+            x = x.to(torch.bfloat16)
+            if "auto" in (rc_backend, nat_backend):
+                rc_backend, nat_backend = _resolve_auto(deploy, x, num_heads, rc_backend,
+                                                        nat_backend)
             logits = deploy_forward(
-                deploy, x.to(torch.bfloat16), num_heads=num_heads,
+                deploy, x, num_heads=num_heads,
                 nat_backend=nat_backend, rc_backend=rc_backend,
             )
             total += cross_entropy_loss(logits, y, (1.0, 4.0), 0.001)

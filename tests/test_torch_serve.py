@@ -159,7 +159,7 @@ def test_deploy_forward_rejects_unported_backends(port_model):
     sd = t_structural_reparam(port_model.state_dict())
     x = torch.zeros(1, 32, 32, 3)
     with pytest.raises(ValueError):
-        t_deploy_forward(sd, x, num_heads=HEADS, rc_backend="pallas")
+        t_deploy_forward(sd, x, num_heads=HEADS, rc_backend="mosaic")
     with pytest.raises(ValueError):
         t_deploy_forward(sd, x, num_heads=HEADS, nat_backend=("flat",) * 3)
 
