@@ -5,15 +5,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Phases, each printing a line, any failure raising (exit code != 0):
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
-  2. build the five kernels (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
-     rc_stats.cu, rc_fused.cu) with nvcc for sm_90a, one process per
-     source, all started together;
+  2. build the eight kernels (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
+     rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
+     natt_flat.cu) with nvcc for sm_90a, one process per source, all
+     started together;
   3. the forward kernel against its plain PyTorch version, in float32
      (TF32 off) and bfloat16, at the four NAT stage shapes of the 256^2
      model (B=2) and of the 288^2 training epoch (B=16), at H=W=28 with
      head_dim 3, at H=W=3 and on a narrow W=4 map;
   4. the serving path: the full-width LMNet from a seeded generator (BN
-     running statistics randomised from it too), serving_evaluate over
+     running statistics and LayerNorm affines randomised from it too),
+     serving_evaluate over
      make_loader(SyntheticDataset(32, 256, 'val', seed=0), 16) with every
      kernel launch counted, and two checks of the output: the deploy graph
      against the model's own eval forward (float32, small input), and the
@@ -65,7 +67,32 @@ Phases, each printing a line, any failure raising (exit code != 0):
      train_step times for both in three turns each with peak memory, a
      torch.profiler pass over two steps of each (device kernels and busy
      time per step), and B6 against its plain version at the inputs of the
-     16 blocks of a training forward, timed.
+     16 blocks of a training forward, timed;
+ 13. B3 (nat_kernel, nat_backend='pallas') against the plain NAT and against
+     B1 on the same inputs, float32 and bfloat16, at phase 3's shapes and
+     the timed 256^2 B=16 stage inputs (B3, B1 and plain times per stage);
+     serving_evaluate with nat_backend='pallas' (launches counted, logits
+     against 'flat'); train_step with LMNet(nat_backend='pallas'): float32
+     at 64^2, B=2 (the loss and every gradient against 'flat') and bf16 at
+     full width (the NAT layers' gradients against a float32 step, as phase
+     8, B3 launches counted), and its time beside 'flat';
+ 14. B7 (upsample_flat) with the upsample backend set to 'flat': against its
+     plain version at the 7 upsample shapes of the 256^2 model (B=16 and
+     B=2) and a few odd shapes, float32 and bfloat16; its backward against
+     autograd of the plain version; serving_evaluate and a 'train' epoch
+     with its launches counted; its time summed over the 7 calls of a served
+     batch beside the plain version and F.interpolate (the library call);
+ 15. the serving options natt_int8, ln_fold and skip_compose at full width,
+     256^2 B=16 bf16: logits against the default's, and deploy_forward
+     times in turns;
+ 16. B8 (natt_flat) on the embeddings of the four NATT stages of a served
+     batch: launches counted, against its plain version in float32 and
+     bfloat16, and timed beside the unfused interior deploy_forward runs.
+
+Each kernel's bound is the least time the card could take for its work at
+the inputs it was timed on: the larger of its bytes (each input read once,
+each output written once) at 3.35 TB/s and its float32 operations (every
+kernel computes in float32) at 67 TFLOP/s.
 
 The script's wall seconds come on a line before the kernels line, which
 lists every kernel of the paths as JSON; the line before the last is the
@@ -111,6 +138,34 @@ DW_SHAPES = ([(2, h, w, 2 * c) for h, w, c in STAGES_256]
              + [(BATCH, h, w, 2 * c) for h, w, c in STAGES_288]
              + [(2, 5, 5, 48), (2, 28, 28, 20), (2, 32, 7, 48)])
 RC_KERNELS = ("rc_dw_gelu", "rc_stats", "rc_fused")
+KERNELS = ("nat_fwd", "nat_bwd", *RC_KERNELS, "nat_kernel", "upsample_flat", "natt_flat")
+# H100 SXM: HBM3 bytes per second; float32 operations per second outside
+# the tensor cores (NVIDIA's data sheet)
+HBM_RATE = 3.35e12
+F32_RATE = 67e12
+
+
+class Work:
+    """Bytes moved and float32 operations of a kernel's calls, summed."""
+
+    def __init__(self):
+        self.nbytes = self.flops = 0.0
+
+    def add(self, nbytes, flops):
+        self.nbytes += nbytes
+        self.flops += flops
+
+    def bound(self) -> tuple[float, str]:
+        """(least milliseconds, what bounds them)."""
+        t_bytes, t_ops = self.nbytes / HBM_RATE * 1e3, self.flops / F32_RATE * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nat_fwd_work(q, C) -> tuple[float, float]:
+    """NAT forward on q (C channels a pixel, HEADS heads): q, k, v in and
+    out once; per element 9 logit and 9 weighted-sum multiply-adds, per
+    (pixel, head) ~36 softmax operations."""
+    return 4 * q.numel() * q.element_size(), 36 * q.numel() + 36 * (q.numel() // C) * HEADS
 
 
 def check(cond: bool, msg: str) -> None:
@@ -148,9 +203,10 @@ def nat_inputs(B, H, W, C, dtype, seed, dev):
     return q, k, v, rpb
 
 
-def check_fwd(label, got, q, k, v, rpb, B, H, W, C) -> float:
-    """Hold the forward kernel's output ``got`` against the plain NAT on q,
-    k, v upcast to float32; print one line; raise if they disagree."""
+def check_fwd(label, got, q, k, v, rpb, B, H, W, C, name="nat_fwd") -> float:
+    """Hold a NAT forward kernel's output ``got`` (flat) against the plain
+    NAT on q, k, v upcast to float32; print one line; raise if they
+    disagree."""
     from lmnet_tpu_torch.ops.nat import neighborhood_attention
 
     ref = neighborhood_attention(
@@ -164,10 +220,10 @@ def check_fwd(label, got, q, k, v, rpb, B, H, W, C) -> float:
         tol = "2^-8*|ref| + 1e-4"
         ok = bool((err <= 2**-8 * ref.abs() + 1e-4).all())
     e = err.max().item()
-    print(f"{label}: nat_fwd vs plain B={B} H={H} W={W} C={C} hd={C // HEADS} "
+    print(f"{label}: {name} vs plain B={B} H={H} W={W} C={C} hd={C // HEADS} "
           f"{str(q.dtype).split('.')[-1]}: max_abs_err={e:.3e} (tol {tol}) "
           f"{'ok' if ok else 'FAIL'}")
-    check(ok, f"nat_fwd disagrees with plain at {(B, H, W, C, q.dtype)}: {e}")
+    check(ok, f"{name} disagrees with plain at {(B, H, W, C, q.dtype)}: {e}")
     return e
 
 
@@ -187,7 +243,7 @@ def phase_kernel_vs_plain(dev) -> float:
 
 def seeded_model(dev):
     from lmnet_tpu_torch.models import LMNet
-    from lmnet_tpu_torch.models.blocks import BatchNorm
+    from lmnet_tpu_torch.models.blocks import BatchNorm, LayerNorm
 
     g = torch.Generator().manual_seed(0)
     model = LMNet(generator=g)
@@ -196,6 +252,9 @@ def seeded_model(dev):
             if isinstance(m, BatchNorm):
                 m.running_mean.normal_(0.0, 0.2, generator=g)
                 m.running_var.uniform_(0.5, 2.0, generator=g)
+            elif isinstance(m, LayerNorm):  # so that ln_fold folds a real affine
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
     return model.to(dev).eval()
 
 
@@ -272,8 +331,10 @@ def phase_times(deploy, xb, card_line):
 
     dev = xb.device
     k_total = p_total = worst = 0.0
+    work = Work()
     for i, (H, W, C) in enumerate(STAGES_256):
         q, k, v, rpb = nat_inputs(BATCH, H, W, C, torch.bfloat16, 100 + i, dev)
+        work.add(*nat_fwd_work(q, C))
         q4, k4, v4 = (t.reshape(BATCH, H, W, C) for t in (q, k, v))
         with torch.inference_mode():
             got = nat_flat(q, k, v, rpb, HEADS, C, W)
@@ -295,7 +356,7 @@ def phase_times(deploy, xb, card_line):
     print(f"phase 5: deploy_forward bf16 {IMG}^2 B={BATCH}: nat flat {f_ms:.3f} ms/batch = "
           f"{BATCH * 1000 / f_ms:.1f} img/s (peak {peak:.2f} GiB); nat plain {pl_ms:.3f} ms/batch = "
           f"{BATCH * 1000 / pl_ms:.1f} img/s [{card_line}]")
-    return k_total, p_total, worst
+    return k_total, p_total, worst, work
 
 
 def check_bwd(label, got, q, k, v, rpb, g, B, H, W, C, scale) -> float:
@@ -547,8 +608,12 @@ def phase_train_times(dev, card_line):
     from lmnet_tpu_torch.train import create_train_state, train_step
 
     k_total = p_total = worst = 0.0
+    work = Work()
     for i, (H, W, C) in enumerate(STAGES_256):
         q, k, v, rpb = nat_inputs(BATCH, H, W, C, torch.bfloat16, 500 + i, dev)
+        # q, k, v, g in, dq, dk, dv out; per element the 9 logits, 9 dP, and
+        # 9 each of dq, dk and dv multiply-adds, per (pixel, head) ~50 more
+        work.add(7 * q.numel() * q.element_size(), 90 * q.numel() + 50 * (q.numel() // C) * HEADS)
         g = torch.randn(BATCH, H, W * C, generator=torch.Generator().manual_seed(600 + i))
         g = g.to(dev, torch.bfloat16)
         scale = float(C // HEADS) ** -0.5
@@ -611,7 +676,7 @@ def phase_train_times(dev, card_line):
     print(f"phase 9: train_step mean of two turns: flat {flat_ms:.3f} ms "
           f"({BATCH * 1000 / flat_ms:.1f} img/s), plain {plain_ms:.3f} ms "
           f"({BATCH * 1000 / plain_ms:.1f} img/s) [{card_line}]")
-    return k_total, p_total, worst
+    return k_total, p_total, worst, work
 
 
 def _dt(dtype) -> str:
@@ -848,9 +913,21 @@ def phase_rc_serving(model, dev, card_line):
         engine._rc = real
     check(len(calls) == 16, f"captured {len(calls)} ReparamConv inputs, want 16")
     res = {"rc_dw_gelu": [0.0, 0.0, 0.0], "rc_fused": [0.0, 0.0, 0.0]}  # err, ms, plain ms
+    work = {"rc_dw_gelu": Work(), "rc_fused": Work()}
     with torch.inference_mode():
         for sd, name, h, _ in calls:
             w = fold_rc_weights(sd, name)
+            B, H, W, Cin = h.shape
+            E, Cout = w["we"].shape[0], w["wp"].shape[0]
+            # x in, y out, the weights once; per pixel the expand, depthwise,
+            # pointwise and shortcut multiply-adds and ~20 activation
+            # operations per channel of e
+            work["rc_fused"].add(B * H * W * (Cin + Cout) * h.element_size()
+                                 + 4 * sum(t.numel() for t in w.values()),
+                                 B * H * W * (2 * (Cin * E + 25 * E + E * Cout + Cin * Cout)
+                                              + 20 * E))
+            # e in, t out, per element 25 multiply-adds and ~20 for bias and GELU
+            work["rc_dw_gelu"].add(2 * B * H * W * E * h.element_size(), 70 * B * H * W * E)
             got = fused_reparam_conv(h, w)
             res["rc_fused"][0] = max(res["rc_fused"][0], check_rc("phase 11", h, w, got))
             res["rc_fused"][1] += cuda_ms(lambda: fused_reparam_conv(h, w))
@@ -870,7 +947,7 @@ def phase_rc_serving(model, dev, card_line):
               f"bf16): kernel {ms:.4f} ms, plain {pms:.4f} ms [{card_line}]")
     serve_launches = {"rc_dw_gelu": launches["flat"]["rc_dw_gelu"],
                       "rc_fused": launches["pallas"]["rc_fused"]}
-    return serve_launches, res
+    return serve_launches, res, work
 
 
 def phase_rc_training(dev, card_line):
@@ -1031,16 +1108,434 @@ def phase_rc_training(dev, card_line):
     del states
     check(len(calls) == 16, f"captured {len(calls)} fused ReparamConv inputs, want 16")
     err = ms = pms = 0.0
+    work = Work()
     with torch.no_grad():
         for e, k5, k3, kv, kh, *_, C, _eps in calls:
             ks = [k5, k3, kv, kh]
+            # e in; per element the four branches' 40 multiply-adds and a sum
+            # and a square sum for each
+            work.add(e.numel() * e.element_size(), 96 * e.numel())
             got = rc_branch_stats(e, *ks, C)
             err = max(err, check_stats("phase 12", e, ks, got, C))
             ms += cuda_ms(lambda: rc_branch_stats(e, *ks, C))
             pms += cuda_ms(lambda: rc_branch_stats_plain(e, *ks, C))
     print(f"phase 12: rc_stats over the 16 ReparamConv blocks of a training forward (256^2, "
           f"B=16, bf16): kernel {ms:.4f} ms, plain {pms:.4f} ms [{card_line}]")
-    return train_launches, (err, ms, pms)
+    return train_launches, (err, ms, pms), work
+
+
+def check_b3(label, got, q, k, v, rpb, B, H, W, C) -> float:
+    """Hold B3's NHWC output against the plain NAT (check_fwd's bounds) and
+    against B1 on the same inputs: f32 abs 1e-5; bf16 two roundings of the
+    stored results, 2^-7 |B1| + 1e-4. Returns the error against plain."""
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat
+
+    flat = (B, H, W * C)
+    err = check_fwd(label, got.reshape(flat), q, k, v, rpb, B, H, W, C, "nat_kernel")
+    b1 = nat_flat(q.reshape(flat), k.reshape(flat), v.reshape(flat), rpb, HEADS, C, W).float()
+    d = (got.reshape(flat).float() - b1).abs()
+    ok = bool((d <= (1e-5 if q.dtype == torch.float32 else 2**-7 * b1.abs() + 1e-4)).all())
+    print(f"{label}: nat_kernel vs nat_fwd B={B} H={H} W={W} C={C} {_dt(q.dtype)}: "
+          f"max_abs_diff={d.max().item():.3e} {'ok' if ok else 'FAIL'}")
+    check(ok, f"nat_kernel disagrees with nat_fwd at {(B, H, W, C, q.dtype)}")
+    return err
+
+
+def _served_batch(dev):
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.data.augment import eval_pipeline
+
+    images, masks = next(iter(make_loader(SyntheticDataset(BATCH, IMG, "val", seed=0), BATCH)))
+    xb, _ = eval_pipeline(torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev), IMG)
+    return xb.to(torch.bfloat16)
+
+
+def _logits_close(label, out, ref, bound=None, flips_max=0.025, rel_max=None):
+    """Served bf16 logits against a reference's: max |diff| <= ``bound``,
+    argmax flips under ``flips_max``, mean |diff| / mean |ref| under
+    ``rel_max`` (a None bound is printed, not held); print one line, raise
+    if not."""
+    err = (out - ref).abs().max().item()
+    flips = (out.argmax(-1) != ref.argmax(-1)).float().mean().item()
+    rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    ok = (out.shape == ref.shape and bool(torch.isfinite(out).all())
+          and (bound is None or err <= bound) and (flips_max is None or flips < flips_max)
+          and (rel_max is None or rel < rel_max))
+    print(f"{label}: max_abs_diff={err:.3e} (tol {bound}) mean rel diff={rel:.3e} "
+          f"(tol {rel_max}) argmax flips={flips:.4%} (tol {flips_max}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: logits disagree")
+
+
+def phase_b3(model, dev, card_line):
+    """Phase 13; returns the B3 entry's numbers and its launches by path."""
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.models import structural_reparam
+    from lmnet_tpu_torch.models.blocks import NeighborhoodAttention2D
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat
+    from lmnet_tpu_torch.ops.nat_kernel import (
+        neighborhood_attention_pallas,
+        neighborhood_attention_pallas_plain,
+    )
+    from lmnet_tpu_torch.serve import deploy_forward, serving_evaluate
+    from lmnet_tpu_torch.train import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
+    for i, (B, H, W, C) in enumerate(CHECK_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, rpb = nat_inputs(B, H, W, C, dtype, 1300 + i, dev)
+            got = neighborhood_attention_pallas(*(t.reshape(B, H, W, C) for t in (q, k, v)), rpb)
+            worst = max(worst, check_b3("phase 13", got, q, k, v, rpb, B, H, W, C))
+    ms = {"nat_kernel": 0.0, "nat_fwd": 0.0, "plain": 0.0}
+    work = Work()
+    with torch.inference_mode():
+        for i, (H, W, C) in enumerate(STAGES_256):
+            q, k, v, rpb = nat_inputs(BATCH, H, W, C, torch.bfloat16, 1400 + i, dev)
+            q4, k4, v4 = (t.reshape(BATCH, H, W, C) for t in (q, k, v))
+            got = neighborhood_attention_pallas(q4, k4, v4, rpb)
+            worst = max(worst, check_b3("phase 13", got, q, k, v, rpb, BATCH, H, W, C))
+            work.add(*nat_fwd_work(q, C))
+            t = {"nat_kernel": cuda_ms(lambda: neighborhood_attention_pallas(q4, k4, v4, rpb)),
+                 "nat_fwd": cuda_ms(lambda: nat_flat(q, k, v, rpb, HEADS, C, W)),
+                 "plain": cuda_ms(lambda: neighborhood_attention_pallas_plain(q4, k4, v4, rpb),
+                                  iters=5)}
+            for key in ms:
+                ms[key] += t[key]
+            print(f"phase 13: nat stage H={H} W={W} C={C} B={BATCH} bf16: nat_kernel "
+                  f"{t['nat_kernel']:.4f} ms, nat_fwd {t['nat_fwd']:.4f} ms, plain "
+                  f"{t['plain']:.4f} ms [{card_line}]")
+    print(f"phase 13: the four stages: nat_kernel {ms['nat_kernel']:.4f} ms, nat_fwd "
+          f"{ms['nat_fwd']:.4f} ms, plain {ms['plain']:.4f} ms (bound {work.bound()[0]:.4f} ms, "
+          f"{work.bound()[1]}) [{card_line}]")
+
+    # serving with nat_backend='pallas'
+    n_images = 32
+    n_batches = (n_images + BATCH - 1) // BATCH
+    state = model.state_dict()
+    torch.cuda.synchronize()
+    neighborhood_attention_pallas.launches = nat_flat.launches = 0
+    loss, metrics = serving_evaluate(
+        state, make_loader(SyntheticDataset(n_images, IMG, "val", seed=0), BATCH),
+        num_classes=2, img_size=IMG, num_heads=HEADS, nat_backend="pallas")
+    torch.cuda.synchronize()
+    serve = neighborhood_attention_pallas.launches
+    print(f"phase 13: serving_evaluate nat_backend=pallas {n_images} images at {IMG}^2 "
+          f"B={BATCH}: loss={loss:.6f} metrics={json.dumps(metrics)} nat_kernel launches={serve} "
+          f"nat_fwd launches={nat_flat.launches}")
+    check(np.isfinite(loss) and all(np.isfinite(v) for v in metrics.values()),
+          "non-finite loss or metrics with nat_backend='pallas'")
+    check(serve == 4 * n_batches and nat_flat.launches == 0,
+          f"nat_kernel launched {serve} times, want 4 x {n_batches} batches and no nat_fwd")
+    deploy = structural_reparam(state)
+    xb = _served_batch(dev)
+    with torch.inference_mode():
+        lp = deploy_forward(deploy, xb, num_heads=HEADS, nat_backend="pallas")
+        lf = deploy_forward(deploy, xb, num_heads=HEADS, nat_backend="flat")
+    _logits_close(f"phase 13: deploy_forward bf16 {IMG}^2 B={BATCH} nat pallas vs flat", lp, lf,
+                  bound=0.05 * max(lf.abs().max().item(), 1.0))
+    del deploy, xb
+
+    # train_step: float32 64^2 B=2, the loss and every gradient against
+    # 'flat' (phase 8's bounds)
+    x, y = _batch(2, 64, "val", 3, dev)
+    pallas, flat = _same_start(dev, 2, (torch.float32, "pallas"), (torch.float32, "flat"))
+    lp, gp = _one_step(pallas, x, y, seed=5)
+    lf, gf = _one_step(flat, x, y, seed=5)
+    big = max(g.norm().item() for g in gf.values())
+    w = max((gp[k] - gf[k]).norm().item() / (1e-3 * gf[k].norm().item() + 1e-5 * big) for k in gf)
+    ok = abs(lp - lf) <= 1e-5 * abs(lf) and w <= 1.0
+    print(f"phase 13: train_step fp32 64^2 B=2 pallas vs flat: loss {lp:.7f} vs {lf:.7f} (tol rel "
+          f"1e-5); {len(gf)} gradients: worst ||pallas-flat|| / (1e-3 ||flat|| + 1e-5 max||g||) = "
+          f"{w:.3e} (tol 1) {'ok' if ok else 'FAIL'}")
+    check(ok, "pallas and flat NAT disagree on the fp32 train step")
+    del pallas, flat
+
+    # bf16 at full width: the NAT layers' gradients, each backend against a
+    # float32 plain step from the same weights (phase 8's bound); the B3
+    # launches of this step are the training path's
+    x, y = _batch(BATCH, IMG, "val", 4, dev)
+    pallas, plain, ref = _same_start(dev, 3, (torch.bfloat16, "pallas"),
+                                     (torch.bfloat16, "plain"), (torch.float32, "plain"))
+    nat_names = [f"{mn}.{pn}" for mn, m in pallas.named_modules()
+                 if isinstance(m, NeighborhoodAttention2D) for pn, _ in m.named_parameters()]
+    neighborhood_attention_pallas.launches = 0
+    lp, gp = _one_step(pallas, x, y, seed=6)
+    train = neighborhood_attention_pallas.launches
+    lq, gq = _one_step(plain, x, y, seed=6)
+    lr, gr = _one_step(ref, x, y, seed=6)
+    del pallas, plain, ref
+    ok = (np.isfinite(lp) and abs(lp - lr) <= 2 * abs(lq - lr) + 1e-4 * abs(lr)
+          and train == 4)
+    ratios = {n: (gp[n] - gr[n]).norm().item()
+              / (2 * (gq[n] - gr[n]).norm().item() + 1e-3 * gr[n].norm().item()) for n in nat_names}
+    worst_g = max(ratios.values())
+    ok = ok and bool(np.isfinite(worst_g)) and worst_g <= 1.0
+    print(f"phase 13: train_step bf16 {IMG}^2 B={BATCH} nat pallas: loss {lp:.6f}, plain {lq:.6f}, "
+          f"fp32 {lr:.6f}; nat_kernel launches {train} (want 4); {len(nat_names)} NAT-layer "
+          f"gradients, worst ||pallas-fp32|| / (2 ||plain-fp32|| + 1e-3 ||fp32||) = {worst_g:.3e} "
+          f"(tol 1), at {max(ratios, key=ratios.get)} {'ok' if ok else 'FAIL'}")
+    check(ok, "pallas NAT disagrees on the bf16 train step")
+
+    x, y = _batch(BATCH, IMG, "val", 7, dev)
+    states = {nb: create_train_state(_train_model(dev, nat_backend=nb, seed=4),
+                                     (BATCH, IMG, IMG, 3), seed=0) for nb in ("flat", "pallas")}
+    times = {"flat": [], "pallas": []}
+    for nb in ("pallas", "flat", "flat", "pallas"):
+        times[nb].append(_time_steps(states[nb], x, y, 5))
+    del states
+    print(f"phase 13: train_step bf16 {IMG}^2 B={BATCH} rc_remat, turns pallas, flat, flat, pallas: "
+          + "; ".join(f"nat {nb} {' / '.join(f'{t:.3f}' for t in ts)} ms" for nb, ts in times.items())
+          + f" [{card_line}]")
+    return ({"max_abs_err": worst, "ms": ms["nat_kernel"], "plain_ms": ms["plain"],
+             "nat_fwd_ms": ms["nat_fwd"]}, work, {"serving": serve, "training": train})
+
+
+# (B, H, W, C) of the 2x upsamples of one 256^2 forward (up1..up4 and the
+# skips' convs inputs), at B=16; phase 14 also checks them at B=2
+UPSAMPLE_SHAPES = [(BATCH, 16, 16, 192), (BATCH, 32, 32, 96), (BATCH, 64, 64, 48),
+                   (BATCH, 128, 128, 24)]
+# the same at the 'train' split's 288^2 load size, which the training epoch sees
+UPSAMPLE_SHAPES_288 = [(BATCH, 18, 18, 192), (BATCH, 36, 36, 96), (BATCH, 72, 72, 48),
+                       (BATCH, 144, 144, 24)]
+
+
+def check_up(label, got, x) -> float:
+    """Hold B7's output against the plain version on x upcast to float32:
+    f32 within 1e-6 (1 + |ref|), bf16 within one rounding of the stored
+    value, 2^-8 |ref| + 1e-6. Print one line; raise on a mismatch."""
+    from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat_plain
+
+    ref = upsample2x_flat_plain(x.float())
+    err = (got.float() - ref).abs()
+    bound = 1e-6 * (1 + ref.abs()) if x.dtype == torch.float32 else 2**-8 * ref.abs() + 1e-6
+    ok = bool((err <= bound).all()) and got.dtype == x.dtype and got.shape == ref.shape
+    print(f"{label}: upsample_flat vs plain {tuple(x.shape)} {_dt(x.dtype)}: "
+          f"max_abs_err={err.max().item():.3e} {'ok' if ok else 'FAIL'}")
+    check(ok, f"upsample_flat disagrees with plain at {tuple(x.shape)} {x.dtype}")
+    return err.max().item()
+
+
+def phase_b7(model, dev, card_line):
+    """Phase 14; returns the B7 entry's numbers and its launches by path."""
+    import torch.nn.functional as F
+
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.models import structural_reparam
+    from lmnet_tpu_torch.ops import resize
+    from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat, upsample2x_flat_plain
+    from lmnet_tpu_torch.serve import deploy_forward, serving_evaluate
+    from lmnet_tpu_torch.train import create_train_state, train_one_epoch
+
+    worst = 0.0
+    odd = [(2, 5, 7, 3), (2, 1, 1, 8), (3, 9, 13, 12), (1, 7, 3, 20)]
+    shapes = (UPSAMPLE_SHAPES + [(2, h, w, c) for _, h, w, c in UPSAMPLE_SHAPES]
+              + UPSAMPLE_SHAPES_288 + odd)
+    for i, shape in enumerate(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, generator=torch.Generator().manual_seed(1500 + i))
+            x = x.to(dev, dtype)
+            worst = max(worst, check_up("phase 14", upsample2x_flat(x), x))
+    x = torch.randn(2, 128, 128, 24, generator=torch.Generator().manual_seed(1600)).to(dev)
+    g = torch.randn(2, 256, 256, 24, generator=torch.Generator().manual_seed(1601)).to(dev)
+    xa, xb_ = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (ga,) = torch.autograd.grad(upsample2x_flat(xa), xa, g)
+    (gb,) = torch.autograd.grad(upsample2x_flat_plain(xb_), xb_, g)
+    err = (ga - gb).abs().max().item()
+    ok = err <= 1e-5 * (1 + gb.abs().max().item())
+    print(f"phase 14: upsample_flat backward vs autograd of plain (2, 128, 128, 24) f32: "
+          f"max_abs_err={err:.3e} (tol 1e-5 (1 + max|ref|)) {'ok' if ok else 'FAIL'}")
+    check(ok, "upsample_flat's backward disagrees with the plain adjoint")
+
+    resize.UPSAMPLE_BACKEND = "flat"
+    try:
+        n_images = 32
+        n_batches = (n_images + BATCH - 1) // BATCH
+        state = model.state_dict()
+        torch.cuda.synchronize()
+        upsample2x_flat.launches = 0
+        loss, metrics = serving_evaluate(
+            state, make_loader(SyntheticDataset(n_images, IMG, "val", seed=0), BATCH),
+            num_classes=2, img_size=IMG, num_heads=HEADS)
+        torch.cuda.synchronize()
+        serve = upsample2x_flat.launches
+        print(f"phase 14: serving_evaluate upsample backend flat {n_images} images at {IMG}^2 "
+              f"B={BATCH}: loss={loss:.6f} metrics={json.dumps(metrics)} upsample_flat "
+              f"launches={serve}")
+        check(np.isfinite(loss) and serve == 7 * n_batches,
+              f"upsample_flat launched {serve} times, want 7 x {n_batches} batches")
+        steps = 2
+        tstate = create_train_state(_train_model(dev, seed=5), (BATCH, IMG * 9 // 8, IMG * 9 // 8, 3),
+                                    seed=0, epochs=10, steps_per_epoch=steps)
+        tcalls = []
+        real = _capture(resize, "upsample2x_flat", tcalls)
+        upsample2x_flat.launches = 0
+        try:
+            tstate, total, tmetrics = train_one_epoch(
+                tstate, make_loader(SyntheticDataset(steps * BATCH, IMG, "train", seed=0), BATCH),
+                img_size=IMG, augment_on_device=False)
+            torch.cuda.synchronize()
+        finally:
+            resize.upsample2x_flat = real
+        train = upsample2x_flat.launches
+        del tstate
+        print(f"phase 14: train_one_epoch upsample backend flat {steps} steps ({IMG * 9 // 8}^2, "
+              f"B={BATCH}, bf16, rc_remat): loss={total:.6f} upsample_flat launches={train}")
+        check(np.isfinite(total) and train == 7 * steps,
+              f"upsample_flat launched {train} times in training, want 7 x {steps} steps")
+        # the counted steps' own upsample inputs, held against the plain version
+        for (x,) in tcalls[:7]:
+            x = x.detach()
+            worst = max(worst, check_up("phase 14 trained", upsample2x_flat(x), x))
+
+        deploy = structural_reparam(state)
+        xb = _served_batch(dev)
+        calls = []
+        real = _capture(resize, "upsample2x_flat", calls)
+        try:
+            with torch.inference_mode():
+                lu = deploy_forward(deploy, xb, num_heads=HEADS)
+        finally:
+            resize.upsample2x_flat = real
+    finally:
+        resize.UPSAMPLE_BACKEND = "einsum"
+    with torch.inference_mode():
+        le = deploy_forward(deploy, xb, num_heads=HEADS)
+    _logits_close(f"phase 14: deploy_forward bf16 {IMG}^2 B={BATCH} upsample flat vs einsum",
+                  lu, le, bound=0.05 * max(le.abs().max().item(), 1.0))
+    check(len(calls) == 7, f"captured {len(calls)} upsample inputs, want 7")
+    ms = plain_ms = lib_ms = 0.0
+    work = Work()
+    with torch.inference_mode():
+        for (x,) in calls:
+            worst = max(worst, check_up("phase 14 served", upsample2x_flat(x), x))
+            # x in, the 4x larger output out; ~6 operations an output element
+            work.add(5 * x.numel() * x.element_size(), 24 * x.numel())
+            ms += cuda_ms(lambda: upsample2x_flat(x))
+            plain_ms += cuda_ms(lambda: upsample2x_flat_plain(x))
+            lib_ms += cuda_ms(lambda: F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                                                    mode="bilinear", align_corners=True))
+    print(f"phase 14: the 7 upsamples of a served batch ({', '.join(str(tuple(c[0].shape)) for c in calls)}"
+          f", bf16): upsample_flat {ms:.4f} ms, plain {plain_ms:.4f} ms, F.interpolate "
+          f"{lib_ms:.4f} ms (bound {work.bound()[0]:.4f} ms, {work.bound()[1]}) [{card_line}]")
+    return ({"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}, work,
+            {"serving": serve, "training": train})
+
+
+def phase_options(model, dev, card_line):
+    """Phase 15: natt_int8, ln_fold and skip_compose served at full width."""
+    from lmnet_tpu_torch.models import structural_reparam
+    from lmnet_tpu_torch.serve import deploy_forward
+
+    deploy = structural_reparam(model.state_dict())
+    xb = _served_batch(dev)
+    opts = {"default": {}, "natt_int8": {"natt_int8": True}, "ln_fold": {"ln_fold": True},
+            "skip_compose": {"skip_compose": True}}
+    with torch.inference_mode():
+        ref = deploy_forward(deploy, xb, num_heads=HEADS)
+        scale = ref.abs().max().item()
+        # the CPU tests' bounds: ln_fold as the other bf16 backends, the
+        # composed skips' logits within 0.3 max|ref|, the int8 interiors'
+        # mean relative error under 0.05; every option's argmax flips < 2.5 %
+        bounds = {"ln_fold": dict(bound=0.05 * max(scale, 1.0)),
+                  "skip_compose": dict(bound=0.3 * scale),
+                  "natt_int8": dict(rel_max=0.05)}
+        for name, kw in bounds.items():
+            out = deploy_forward(deploy, xb, num_heads=HEADS, **opts[name])
+            _logits_close(f"phase 15: deploy_forward bf16 {IMG}^2 B={BATCH} {name} vs default",
+                          out, ref, **kw)
+        times = {k: [] for k in opts}
+        for name in (*opts, *reversed(opts)):
+            times[name].append(cuda_ms(lambda: deploy_forward(deploy, xb, num_heads=HEADS,
+                                                              **opts[name]), iters=10))
+    print(f"phase 15: deploy_forward bf16 {IMG}^2 B={BATCH} by option, turns there and back: "
+          + "; ".join(
+        f"{k} {' / '.join(f'{t:.3f}' for t in ts)} ms" for k, ts in times.items())
+        + f" [{card_line}]")
+
+
+def phase_b8(model, dev, card_line):
+    """Phase 16; returns the B8 entry's numbers and its launches."""
+    from lmnet_tpu_torch.models import structural_reparam
+    from lmnet_tpu_torch.ops.natt_flat import (
+        fold_natt_weights,
+        natt_flat_interior,
+        natt_flat_interior_plain,
+    )
+    from lmnet_tpu_torch.serve import deploy_forward, engine
+
+    deploy = structural_reparam(model.state_dict())
+    xb = _served_batch(dev)
+    calls = []
+    real = _capture(engine, "_natt", calls)
+    try:
+        with torch.inference_mode():
+            deploy_forward(deploy, xb, num_heads=HEADS)
+    finally:
+        engine._natt = real
+    check(len(calls) == 4, f"captured {len(calls)} NATT inputs, want 4")
+    with torch.inference_mode():
+        stages = []
+        for sd, name, x, *_ in calls:
+            emb = engine._conv(sd, f"{name}.patchembedding.patch_embeddings", x)
+            B, H, W, C = emb.shape
+            stages.append((name, emb, fold_natt_weights(sd, name, HEADS), (B, H, W, C)))
+        natt_flat_interior.launches = 0
+        outs = [natt_flat_interior(emb.reshape(B, H, W * C), fw, HEADS, C, W)
+                for _, emb, fw, (B, H, W, C) in stages]
+        torch.cuda.synchronize()
+        launches = natt_flat_interior.launches
+        print(f"phase 16: natt_flat over the four NATT stages of a served batch: launches "
+              f"{launches} (want 4)")
+        check(launches == 4, f"natt_flat launched {launches} times, want 4")
+        worst = 0.0
+        ms = {"natt_flat": 0.0, "plain": 0.0, "unfused": 0.0}
+        work = Work()
+        for (name, emb, fw, (B, H, W, C)), got in zip(stages, outs):
+            for dtype in (torch.bfloat16, torch.float32):
+                e = emb.reshape(B, H, W * C).to(dtype)
+                g = got if dtype == torch.bfloat16 else natt_flat_interior(e, fw, HEADS, C, W)
+                ref = natt_flat_interior_plain(e.float(), fw, HEADS, C, W)
+                err = (g.float() - ref).abs()
+                bound = 1e-4 * (1 + ref.abs().max())
+                if dtype == torch.bfloat16:
+                    bound = bound + 2**-8 * ref.abs()
+                ok = bool((err <= bound).all()) and g.dtype == dtype
+                worst = max(worst, err.max().item())
+                print(f"phase 16: natt_flat vs plain {name} B={B} H={H} W={W} C={C} {_dt(dtype)}: "
+                      f"max_abs_err={err.max().item():.3e} on outputs of max "
+                      f"{ref.abs().max().item():.3e} (tol 1e-4 (1 + max|ref|)"
+                      f"{' + 2^-8 |ref|' if dtype == torch.bfloat16 else ''}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"natt_flat disagrees with plain at {name} {dtype}")
+            e = emb.reshape(B, H, W * C)
+            unf = engine.natt_interior(deploy, name, emb, HEADS, "flat").reshape(B, H, W * C)
+            d = (got.float() - unf.float()).abs().max().item()
+            # emb in, out; per pixel 8 C^2 multiply-adds (q, k, v, proj, fc1,
+            # fc2), the NAT's, ~56 C for the two LayerNorms and the GELU
+            work.add(2 * e.numel() * e.element_size() + 4 * sum(t.numel() for t in fw.values()),
+                     B * H * W * (16 * C * C + 36 * C + 36 * HEADS + 56 * C))
+            t = {"natt_flat": cuda_ms(lambda: natt_flat_interior(e, fw, HEADS, C, W)),
+                 "plain": cuda_ms(lambda: natt_flat_interior_plain(e, fw, HEADS, C, W), iters=5),
+                 "unfused": cuda_ms(lambda: engine.natt_interior(deploy, name, emb, HEADS, "flat"))}
+            for k in ms:
+                ms[k] += t[k]
+            print(f"phase 16: {name} H={H} W={W} C={C} B={B} bf16: natt_flat {t['natt_flat']:.4f} "
+                  f"ms, plain {t['plain']:.4f} ms, the unfused bf16 interior {t['unfused']:.4f} ms "
+                  f"(max |natt_flat - unfused| {d:.3e}) [{card_line}]")
+    print(f"phase 16: the four stages: natt_flat {ms['natt_flat']:.4f} ms, plain {ms['plain']:.4f} "
+          f"ms, unfused {ms['unfused']:.4f} ms (bound {work.bound()[0]:.4f} ms, "
+          f"{work.bound()[1]}) [{card_line}]")
+    return ({"max_abs_err": worst, "ms": ms["natt_flat"], "plain_ms": ms["plain"],
+             "unfused_ms": ms["unfused"]}, work, launches)
+
+
+def entry(name, source, replaces, launches, numbers, work, **extra):
+    """One kernel of the kernels line."""
+    bound_ms, bound_by = work.bound()
+    return {"name": name, "route": "cuda", "source": f"lmnet_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": numbers["max_abs_err"],
+            "ms": numbers["ms"], "plain_ms": numbers["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": numbers.get("library_ms"), **extra}
 
 
 def main() -> int:
@@ -1055,78 +1550,61 @@ def main() -> int:
           f"[{card_line}] torch {torch.__version__} cuda {torch.version.cuda}")
 
     t_start = t0 = time.perf_counter()
-    names = ("nat_fwd", "nat_bwd", *RC_KERNELS)
-    _build.build(*names)
-    for name in names:
+    _build.build(*KERNELS)
+    for name in KERNELS:
         _build.load(name)
-    print(f"phase 2: {', '.join(names)} built in parallel from {_build.CSRC} -> "
-          f"{', '.join(_build.library_path(n).name for n in names)} "
+    print(f"phase 2: {', '.join(KERNELS)} built in parallel from {_build.CSRC} -> "
+          f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
 
     worst = phase_kernel_vs_plain(dev)
     model = seeded_model(dev)
     deploy, serve_launches, xb = phase_serving(model, dev)
-    k_ms, p_ms, worst_timed = phase_times(deploy, xb, card_line)
+    k_ms, p_ms, worst_timed, b1_work = phase_times(deploy, xb, card_line)
     del deploy, xb
     worst_bwd = phase_bwd_vs_plain(dev)
     launches = phase_training(dev)
     phase_flat_vs_plain_step(dev)
-    kb_ms, pb_ms, worst_bwd_timed = phase_train_times(dev, card_line)
+    kb_ms, pb_ms, worst_bwd_timed, b2_work = phase_train_times(dev, card_line)
     worst_rc = phase_rc_kernels(dev)
-    rc_serve_launches, rc_timed = phase_rc_serving(model, dev, card_line)
+    rc_serve_launches, rc_timed, rc_work = phase_rc_serving(model, dev, card_line)
+    rc_train_launches, stats_timed, b6_work = phase_rc_training(dev, card_line)
+    b3, b3_work, b3_launches = phase_b3(model, dev, card_line)
+    b7, b7_work, b7_launches = phase_b7(model, dev, card_line)
+    phase_options(model, dev, card_line)
+    b8, b8_work, b8_launches = phase_b8(model, dev, card_line)
     del model
-    rc_train_launches, stats_timed = phase_rc_training(dev, card_line)
+
+    def rc_numbers(k, extra):
+        return {"max_abs_err": max(worst_rc[k], extra[0]), "ms": extra[1], "plain_ms": extra[2]}
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s wall")
-    print(json.dumps({"kernels": [{
-        "name": "nat_fwd",
-        "route": "cuda",
-        "source": "lmnet_tpu_torch/csrc/nat_fwd.cu",
-        "replaces": "lmnet_tpu/ops/pallas/nat_flat.py:249",
-        "launches": launches["nat_fwd"],
-        "launches_by_path": {"training": launches["nat_fwd"], "serving": serve_launches},
-        "max_abs_err": max(worst, worst_timed),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "nat_bwd",
-        "route": "cuda",
-        "source": "lmnet_tpu_torch/csrc/nat_bwd.cu",
-        "replaces": "lmnet_tpu/ops/pallas/nat_flat.py:563",
-        "launches": launches["nat_bwd"],
-        "max_abs_err": max(worst_bwd, worst_bwd_timed),
-        "ms": kb_ms,
-        "plain_ms": pb_ms,
-    }, {
-        "name": "rc_fused",
-        "route": "cuda",
-        "source": "lmnet_tpu_torch/csrc/rc_fused.cu",
-        "replaces": "lmnet_tpu/ops/pallas/rc_kernel.py:145",
-        "launches": rc_serve_launches["rc_fused"],
-        "max_abs_err": max(worst_rc["rc_fused"], rc_timed["rc_fused"][0]),
-        "ms": rc_timed["rc_fused"][1],
-        "plain_ms": rc_timed["rc_fused"][2],
-    }, {
-        "name": "rc_dw_gelu",
-        "route": "cuda",
-        "source": "lmnet_tpu_torch/csrc/rc_dw_gelu.cu",
-        "replaces": "lmnet_tpu/ops/pallas/rc_flat.py:119",
-        "launches": rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"],
-        "launches_by_path": {"serving": rc_serve_launches["rc_dw_gelu"],
-                             "training": rc_train_launches["rc_dw_gelu"]},
-        "max_abs_err": max(worst_rc["rc_dw_gelu"], rc_timed["rc_dw_gelu"][0]),
-        "ms": rc_timed["rc_dw_gelu"][1],
-        "plain_ms": rc_timed["rc_dw_gelu"][2],
-    }, {
-        "name": "rc_stats",
-        "route": "cuda",
-        "source": "lmnet_tpu_torch/csrc/rc_stats.cu",
-        "replaces": "lmnet_tpu/ops/pallas/rc_train.py:140",
-        "launches": rc_train_launches["rc_stats"],
-        "max_abs_err": max(worst_rc["rc_stats"], stats_timed[0]),
-        "ms": stats_timed[1],
-        "plain_ms": stats_timed[2],
-    }]}))
+    print(json.dumps({"kernels": [
+        entry("nat_fwd", "nat_fwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:249",
+              launches["nat_fwd"] + serve_launches,
+              {"max_abs_err": max(worst, worst_timed), "ms": k_ms, "plain_ms": p_ms}, b1_work,
+              launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches}),
+        entry("nat_bwd", "nat_bwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:563",
+              launches["nat_bwd"],
+              {"max_abs_err": max(worst_bwd, worst_bwd_timed), "ms": kb_ms, "plain_ms": pb_ms},
+              b2_work),
+        entry("nat_kernel", "nat_kernel.cu", "lmnet_tpu/ops/pallas/nat_kernel.py:231",
+              sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches),
+        entry("rc_fused", "rc_fused.cu", "lmnet_tpu/ops/pallas/rc_kernel.py:145",
+              rc_serve_launches["rc_fused"], rc_numbers("rc_fused", rc_timed["rc_fused"]),
+              rc_work["rc_fused"]),
+        entry("rc_dw_gelu", "rc_dw_gelu.cu", "lmnet_tpu/ops/pallas/rc_flat.py:119",
+              rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"],
+              rc_numbers("rc_dw_gelu", rc_timed["rc_dw_gelu"]), rc_work["rc_dw_gelu"],
+              launches_by_path={"serving": rc_serve_launches["rc_dw_gelu"],
+                                "training": rc_train_launches["rc_dw_gelu"]}),
+        entry("rc_stats", "rc_stats.cu", "lmnet_tpu/ops/pallas/rc_train.py:140",
+              rc_train_launches["rc_stats"], rc_numbers("rc_stats", stats_timed), b6_work),
+        entry("upsample_flat", "upsample_flat.cu", "lmnet_tpu/ops/pallas/upsample_flat.py:148",
+              sum(b7_launches.values()), b7, b7_work, launches_by_path=b7_launches),
+        entry("natt_flat", "natt_flat.cu", "lmnet_tpu/ops/pallas/natt_flat.py:265",
+              b8_launches, b8, b8_work),
+    ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 from lmnet_tpu_torch.ops.nat_flat import nat_flat
+from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
 from lmnet_tpu_torch.ops.rc_train import rc_branch_act
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
 
@@ -48,6 +49,7 @@ LN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
 DROPOUT = 0.1  # Mlp (reference core/modules.py:42-56)
 RC_TRAIN_BACKENDS = ("auto", "xla", "fused", "packed")
+NAT_BACKENDS = ("flat", "pallas", "plain")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -482,13 +484,15 @@ class NeighborhoodAttention2D(nn.Module):
     """NAT layer (kernel 3): qkv and proj linears around neighborhood
     attention with a relative position bias (the NATTEN module's
     parameters). ``backend`` 'flat' runs ``ops/nat_flat.py`` (the CUDA
-    kernels, forward and backward, on CUDA tensors; the plain version on CPU
-    ones); 'plain' runs ``ops/nat.py``."""
+    kernels B1 and B2, forward and backward, on CUDA tensors; the plain
+    version on CPU ones); 'pallas' runs ``ops/nat_kernel.py`` (the B3 forward
+    kernel, the backward through the plain NAT, as JAX's 'pallas'); 'plain'
+    runs ``ops/nat.py``."""
 
     def __init__(self, dim: int, num_heads: int, backend: str = "flat"):
         super().__init__()
-        if backend not in ("flat", "plain"):
-            raise ValueError(f"nat backend must be 'flat' or 'plain', not {backend!r}")
+        if backend not in NAT_BACKENDS:
+            raise ValueError(f"nat backend must be one of {NAT_BACKENDS}, not {backend!r}")
         self.num_heads = num_heads
         self.backend = backend
         self.qkv = Dense(dim, 3 * dim)
@@ -509,16 +513,19 @@ class NeighborhoodAttention2D(nn.Module):
 
 def nat(q, k, v, rpb, num_heads: int, backend: str):
     """Neighborhood attention (kernel 3) on NHWC q, k, v: backend 'flat'
-    (``ops/nat_flat.py``) or 'plain' (``ops/nat.py``)."""
+    (``ops/nat_flat.py``), 'pallas' (``ops/nat_kernel.py``) or 'plain'
+    (``ops/nat.py``)."""
     if backend == "flat":
         B, H, W, C = q.shape
         flat = (B, H, W * C)
         return nat_flat(
             q.reshape(flat), k.reshape(flat), v.reshape(flat), rpb, num_heads, C, W
         ).reshape(B, H, W, C)
+    if backend == "pallas":
+        return neighborhood_attention_pallas(q, k, v, rpb, 3)
     if backend == "plain":
         return neighborhood_attention(q, k, v, rpb, 3)
-    raise ValueError(f"nat backend must be 'flat' or 'plain', not {backend!r}")
+    raise ValueError(f"nat backend must be one of {NAT_BACKENDS}, not {backend!r}")
 
 
 class NeighborhoodTransformer(nn.Module):

@@ -50,8 +50,9 @@ class LMNet(nn.Module):
       dtype: compute dtype of the activations (``torch.bfloat16`` is the
         CLI's ``--apm``); None keeps the input's. Parameters stay float32
         and are cast at each op; the logits come back float32.
-      nat_backend: 'flat' (``ops/nat_flat.py``: the CUDA kernels on a card)
-        or 'plain' (``ops/nat.py``).
+      nat_backend: 'flat' (``ops/nat_flat.py``: the CUDA kernels B1 and B2 on
+        a card), 'pallas' (``ops/nat_kernel.py``: the B3 forward kernel, the
+        backward through the plain NAT) or 'plain' (``ops/nat.py``).
       rc_remat: recompute every ReparamConv in the backward
         (``torch.utils.checkpoint``), as JAX's default ``rc_remat=True``.
         JAX's ``'branches'`` policy is not ported.

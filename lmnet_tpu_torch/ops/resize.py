@@ -4,12 +4,26 @@ Counterpart of ``lmnet_tpu/ops/resize.py``. The reference decoder upsamples
 with ``nn.Upsample(mode='bilinear', align_corners=True)`` and the bottleneck
 pools with ``adaptive_avg_pool2d``; here those are the torch ops themselves,
 applied to an NCHW view of the NHWC tensor (a permute, no copy).
+
+Every 2x upsample of the model and the deploy graph goes through
+``upsample2x_align_corners``, which dispatches on ``UPSAMPLE_BACKEND``, read
+once at import from ``LMNET_UPSAMPLE_BACKEND`` as in JAX: 'einsum' (the
+default; JAX's name, here ``F.interpolate``) or 'flat' (the B7 kernel,
+``ops/upsample_flat.py``). Set the attribute to switch within a process. An
+unknown value raises (JAX quietly takes 'einsum').
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
+
+from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat
+
+UPSAMPLE_BACKENDS = ("einsum", "flat")
+UPSAMPLE_BACKEND = os.environ.get("LMNET_UPSAMPLE_BACKEND", "einsum")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -33,7 +47,13 @@ def bilinear_resize(
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)``."""
+    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)``,
+    through the backend ``UPSAMPLE_BACKEND`` names."""
+    if UPSAMPLE_BACKEND == "flat":
+        return upsample2x_flat(x)
+    if UPSAMPLE_BACKEND != "einsum":
+        raise ValueError(f"LMNET_UPSAMPLE_BACKEND must be one of {UPSAMPLE_BACKENDS}, "
+                         f"not {UPSAMPLE_BACKEND!r}")
     _, h, w, _ = x.shape
     return bilinear_resize(x, (2 * h, 2 * w), align_corners=True)
 

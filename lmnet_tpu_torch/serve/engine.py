@@ -4,18 +4,23 @@ deploy state dict, and ``serving_evaluate`` over a loader.
 Counterpart of ``lmnet_tpu/serve/engine.py`` (``deploy_forward``,
 ``serving_evaluate``). Take a train-mode ``LMNet`` state dict,
 ``structural_reparam`` it, and call ``deploy_forward``. NAT runs through the
-CUDA kernel (``nat_backend='flat'``) on the card, and the ReparamConv block
+B1 CUDA kernel (``nat_backend='flat'``), the tiled B3 kernel (``'pallas'``)
+or the plain version (``'plain'``) on the card, and the ReparamConv block
 through the plain torch graph (``rc_backend='xla'``, the JAX engine's name),
 the B5 kernel (``'flat'``, ``ops/rc_flat.py``) or the two-pass B4 kernel
-(``'pallas'``, ``ops/rc_kernel.py``); everything else is plain torch.
-``rc_backend='auto'`` in ``serving_evaluate`` times the candidates on the
-first batch (``autoselect_backends``). Dtypes follow the JAX engine: the
-activations carry the compute dtype (bf16 when serving), every weight is
-cast to it at its op, BatchNorm's scale is formed in float32 first, and the
-SE squeeze stays in the compute dtype.
+(``'pallas'``, ``ops/rc_kernel.py``); every 2x upsample goes through
+``ops/resize.py``, whose backend switch selects the B7 kernel; everything
+else is plain torch. ``rc_backend='auto'`` in ``serving_evaluate`` times the
+candidates on the first batch (``autoselect_backends``). Dtypes follow the
+JAX engine: the activations carry the compute dtype (bf16 when serving),
+every weight is cast to it at its op, BatchNorm's scale is formed in float32
+first, and the SE squeeze stays in the compute dtype.
 
-Left out here: the int8 NATT interiors, LN folding, composed skips and the
-device mesh (all off by default in JAX).
+JAX's deploy options are here too: ``natt_int8`` (int8 qkv and fc1 products
+off a static-scale int8 LayerNorm), ``ln_fold`` (the LayerNorm affines folded
+into qkv and fc1) and ``skip_compose`` (convl/convm/convs composed into the
+skip blocks' fuse conv). Unlike JAX, ``natt_int8`` with ``ln_fold`` raises
+(JAX drops ``ln_fold``). Left out here: the device mesh and HD95.
 """
 
 from __future__ import annotations
@@ -62,10 +67,14 @@ def _bn(sd: Tensors, name: str, x):
     return x * inv.to(x.dtype) + shift.to(x.dtype)
 
 
-def _ln(sd: Tensors, name: str, x):
+def _ln_noaffine(x):
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
-    y = (x - mu) * torch.rsqrt(var + LN_EPS)
+    return (x - mu) * torch.rsqrt(var + LN_EPS)
+
+
+def _ln(sd: Tensors, name: str, x):
+    y = _ln_noaffine(x)
     return y * sd[f"{name}.weight"].to(x.dtype) + sd[f"{name}.bias"].to(x.dtype)
 
 
@@ -98,6 +107,60 @@ def _m3skip(sd: Tensors, name: str, xl, xm, xs):
     return gelu(_bn(sd, f"{name}.fuse_conv.1", fused))
 
 
+def _compose_kk(k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor):
+    """Two stacked 'same'-padded convs (k1, then k2) as one, on OIHW kernels
+    k1 (cm, ci, kh1, kw1) and k2 (co, cm, kh2, kw2): K[d] = sum over d1 + d2 =
+    d of k2[d2] k1[d1] contracted over cm, in float32, and k1's bias through
+    k2 (co,). Exact in the interior; the outermost output ring differs from
+    the two-pass form, which zero-pads the intermediate. The composed size
+    must be odd, so that 'same' padding centres it; else ValueError."""
+    cm, _, kh1, kw1 = k1.shape
+    co, cm2, kh2, kw2 = k2.shape
+    if cm != cm2:
+        raise ValueError(f"k1 gives {cm} channels, k2 takes {cm2}")
+    if (kh1 + kh2) % 2 == 1 or (kw1 + kw2) % 2 == 1:
+        raise ValueError(f"composed kernel {kh1 + kh2 - 1}x{kw1 + kw2 - 1} is not odd-sized")
+    k1f, k2f = k1.float(), k2.float()
+    K = torch.zeros(co, k1.shape[1], kh1 + kh2 - 1, kw1 + kw2 - 1, device=k1.device)
+    for a in range(kh1):
+        for b in range(kw1):
+            K[:, :, a:a + kh2, b:b + kw2] += torch.einsum("mi,omhw->oihw", k1f[:, :, a, b], k2f)
+    return K, torch.einsum("m,omhw->o", b1.float(), k2f)
+
+
+def _m2skip_composed(sd: Tensors, name: str, xl, xs, mode: str):
+    """M2 skip with convs (and, in 'top' mode, convl) composed into the fuse
+    conv: the (B, H, W, cm) intermediates are never formed. The strided convl
+    of 'bottom' mode stays two-pass (a strided conv does not compose)."""
+    kf = sd[f"{name}.fuse_conv.0.weight"]
+    fb = sd[f"{name}.fuse_conv.0.bias"].float()
+    cm = sd[f"{name}.convl.0.weight"].shape[0]
+    convs = f"{name}.convs.0" if mode == "bottom" else f"{name}.convs.1"
+    ks, bs = _compose_kk(sd[f"{convs}.weight"], sd[f"{convs}.bias"], kf[:, cm:])
+    if mode == "bottom":
+        a = _conv(sd, f"{name}.convl.0", xl, 2)
+        out = conv_nhwc(a, kf[:, :cm]) + conv_nhwc(xs, ks, bs + fb)
+    else:
+        kl, bl = _compose_kk(sd[f"{name}.convl.0.weight"], sd[f"{name}.convl.0.bias"],
+                             kf[:, :cm])
+        out = conv_nhwc(xl, kl, bl + bs + fb) + conv_nhwc(upsample2x_align_corners(xs), ks)
+    return gelu(_bn(sd, f"{name}.fuse_conv.1", out))
+
+
+def _m3skip_composed(sd: Tensors, name: str, xl, xm, xs):
+    kf = sd[f"{name}.fuse_conv.0.weight"]
+    cm = sd[f"{name}.convm.0.weight"].shape[0]
+    km, bm = _compose_kk(sd[f"{name}.convm.0.weight"], sd[f"{name}.convm.0.bias"],
+                         kf[:, cm:2 * cm])
+    ks, bs = _compose_kk(sd[f"{name}.convs.1.weight"], sd[f"{name}.convs.1.bias"],
+                         kf[:, 2 * cm:])
+    a = _conv(sd, f"{name}.convl.0", xl, 2)  # strided: not composable
+    bias = bm + bs + sd[f"{name}.fuse_conv.0.bias"].float()
+    out = (conv_nhwc(a, kf[:, :cm]) + conv_nhwc(xm, km, bias)
+           + conv_nhwc(upsample2x_align_corners(xs), ks))
+    return gelu(_bn(sd, f"{name}.fuse_conv.1", out))
+
+
 def _gft(sd: Tensors, x, num_heads: int):
     B, H, W, _ = x.shape
     emb = _conv(sd, "gft.patchembedding.patch_embeddings", x).reshape(B, H * W, -1)
@@ -107,18 +170,85 @@ def _gft(sd: Tensors, x, num_heads: int):
     return _conv(sd, "gft.conv.0", out.reshape(B, H, W, -1))
 
 
-def _natt(sd: Tensors, name: str, x, num_heads: int, nat_backend: str):
+def _ln_static_scale(sd: Tensors, name: str) -> torch.Tensor:
+    """A bound on |LN output| with no pass over the data: the normalised
+    vector has L2 norm sqrt(C), so |x_hat| <= sqrt(C - 1); scaled by gamma's
+    absmax, shifted by beta's; as an int8 step (divided by 127)."""
+    g, b = sd[f"{name}.weight"], sd[f"{name}.bias"]
+    bound = float(max(g.shape[0] - 1, 1)) ** 0.5 * g.abs().max() + b.abs().max()
+    return bound.clamp_min(1e-8) / 127.0
+
+
+def _ln_q8(sd: Tensors, name: str, x, s_in):
+    """LayerNorm in float32, quantised to int8 at the static step ``s_in``
+    (round half to even, as jnp.round)."""
+    return torch.round(_ln(sd, name, x.float()) / s_in).clamp(-127, 127).to(torch.int8)
+
+
+def _quant_w_percol(w: torch.Tensor):
+    """Symmetric int8 quantisation of an (out, in) weight, one step per
+    output feature (JAX's per-column step of its (in, out) kernel)."""
+    s = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-8)
+    return torch.round(w / s[:, None]).clamp(-127, 127).to(torch.int8), s
+
+
+def _dense_i8(x8, w8, s_in, s_col, bias, out_dtype):
+    """int8 x int8 product, rescaled, plus bias, in ``out_dtype``. The
+    product runs in float32, which is exact here: |sum| <= 127^2 C < 2^24."""
+    acc = F.linear(x8.float(), w8.float())
+    return (acc * (s_in * s_col) + bias).to(out_dtype)
+
+
+def _ln_fold(sd: Tensors, ln: str, w: torch.Tensor, b: torch.Tensor):
+    """The LN affine folded into the (out, in) dense that follows it, in
+    float32: (x_hat g + be) W^T + b = x_hat (W g)^T + (W be + b)."""
+    g, be, wf = sd[f"{ln}.weight"].float(), sd[f"{ln}.bias"].float(), w.float()
+    return wf * g[None, :], wf @ be + b.float()
+
+
+def _ln_dense(sd: Tensors, ln: str, dense: str, x, rows: list[slice], natt_int8: bool,
+              ln_fold: bool) -> list[torch.Tensor]:
+    """The dense ``dense`` on the LayerNorm ``ln`` of x, one output for each
+    slice of the output features in ``rows``, in x's dtype: int8 products
+    off a static-scale int8 LayerNorm (``natt_int8``), the LN affine folded
+    into the dense (``ln_fold``), or the plain graph."""
+    w, b = sd[f"{dense}.weight"], sd[f"{dense}.bias"]
+    dt = x.dtype
+    if natt_int8:
+        s = _ln_static_scale(sd, ln)
+        x8 = _ln_q8(sd, ln, x, s)
+        w8, sw = _quant_w_percol(w)
+        return [_dense_i8(x8, w8[r], s, sw[r], b[r], dt) for r in rows]
+    if ln_fold:
+        wf, bf = _ln_fold(sd, ln, w, b)
+        xn = _ln_noaffine(x)
+        return [F.linear(xn, wf[r].to(dt), bf[r].to(dt)) for r in rows]
+    xn = _ln(sd, ln, x)
+    return [_dense(sd, dense, xn, r) for r in rows]
+
+
+def _natt(sd: Tensors, name: str, x, num_heads: int, nat_backend: str,
+          natt_int8: bool = False, ln_fold: bool = False):
     emb = _conv(sd, f"{name}.patchembedding.patch_embeddings", x)
+    return natt_interior(sd, name, emb, num_heads, nat_backend, natt_int8, ln_fold)
+
+
+def natt_interior(sd: Tensors, name: str, emb, num_heads: int, nat_backend: str,
+                  natt_int8: bool = False, ln_fold: bool = False):
+    """The NATT block ``name`` after its patch-embed conv, on NHWC ``emb``:
+    the unfused counterpart of ``ops/natt_flat.py::natt_flat_interior``."""
     C = emb.shape[-1]
-    ln1 = _ln(sd, f"{name}.norm1", emb)
     # weight-sliced qkv: three contiguous outputs that reshape to the flat
-    # NAT layout without a copy
-    q, k, v = (
-        _dense(sd, f"{name}.att1.qkv", ln1, slice(i * C, (i + 1) * C)) for i in range(3)
-    )
+    # NAT layout without a copy. Under natt_int8 only qkv and fc1 take int8
+    # products; proj and fc2 stay in the compute dtype (their inputs have no
+    # static bound)
+    q, k, v = _ln_dense(sd, f"{name}.norm1", f"{name}.att1.qkv", emb,
+                        [slice(i * C, (i + 1) * C) for i in range(3)], natt_int8, ln_fold)
     out = nat(q, k, v, sd[f"{name}.att1.rpb"], num_heads, nat_backend)
     att = _dense(sd, f"{name}.att1.proj", out) + emb
-    return _mlp(sd, f"{name}.mlp", _ln(sd, f"{name}.norm2", att)) + att
+    (h,) = _ln_dense(sd, f"{name}.norm2", f"{name}.mlp.fc1", att, [slice(None)], natt_int8,
+                     ln_fold)
+    return _dense(sd, f"{name}.mlp.fc2", gelu(h)) + att
 
 
 def _rc(sd: Tensors, name: str, h, rc_backend: str):
@@ -146,18 +276,32 @@ def deploy_forward(
     num_heads: int = 12,
     nat_backend: str | tuple = "flat",
     rc_backend: str = "xla",
+    natt_int8: bool = False,
+    ln_fold: bool = False,
+    skip_compose: bool = False,
 ) -> torch.Tensor:
     """Deploy-mode forward: NHWC ``x`` -> float32 NHWC logits.
 
     ``variables``: the ``structural_reparam`` output, on x's device.
-    ``nat_backend``: 'flat' (the CUDA kernel on a CUDA tensor) or 'plain',
-    or a 4-tuple giving it per NAT stage (natt1 .. natt4, deepest first).
+    ``nat_backend``: 'flat' (the B1 kernel on a CUDA tensor), 'pallas' (the
+    B3 kernel) or 'plain', or a 4-tuple giving it per NAT stage (natt1 ..
+    natt4, deepest first).
     ``rc_backend``: 'xla' (the plain torch ReparamConv; the name is the JAX
     engine's), 'flat' (the B5 kernel with the 1x1 products as matmuls) or
     'pallas' (the B4 kernel, which computes the whole block in two passes).
+    ``natt_int8``: int8 qkv and fc1 products in every NATT interior, off a
+    static-scale int8 LayerNorm (a few per cent of activation error).
+    ``ln_fold``: the LayerNorm affines folded into qkv and fc1 (exact up to
+    rounding); not together with ``natt_int8``.
+    ``skip_compose``: convl/convm/convs composed into the skip blocks' fuse
+    conv (exact in the interior; the outermost ring of each skip's map
+    differs, see ``_compose_kk``).
     """
     if rc_backend not in RC_BACKENDS:
         raise ValueError(f"rc_backend must be one of {RC_BACKENDS}, not {rc_backend!r}")
+    if natt_int8 and ln_fold:
+        raise ValueError("natt_int8 and ln_fold are exclusive (JAX's int8 path silently "
+                         "drops ln_fold)")
     nb = nat_backend if isinstance(nat_backend, tuple) else (nat_backend,) * 4
     if len(nb) != 4:
         raise ValueError(f"nat_backend tuple needs 4 entries, got {nb}")
@@ -179,15 +323,14 @@ def deploy_forward(
     pooled = torch.cat([adaptive_avg_pool(t, (h, w)) for t in (x1, x2, x3, x4)] + [xd4], dim=-1)
     x5 = _gft(sd, pooled, num_heads)
 
-    s1 = _m2skip(sd, "skip1", x3, x4, "bottom")
-    s2 = _m3skip(sd, "skip2", x2, x3, x4)
-    s3 = _m3skip(sd, "skip3", x1, x2, x3)
-    s4 = _m2skip(sd, "skip4", x1, x2, "top")
+    m2, m3 = (_m2skip_composed, _m3skip_composed) if skip_compose else (_m2skip, _m3skip)
+    s1 = m2(sd, "skip1", x3, x4, "bottom")
+    s2 = m3(sd, "skip2", x2, x3, x4)
+    s3 = m3(sd, "skip3", x1, x2, x3)
+    s4 = m2(sd, "skip4", x1, x2, "top")
 
-    x46 = _natt(sd, "natt1", s1, num_heads, nb[0])
-    x37 = _natt(sd, "natt2", s2, num_heads, nb[1])
-    x28 = _natt(sd, "natt3", s3, num_heads, nb[2])
-    x19 = _natt(sd, "natt4", s4, num_heads, nb[3])
+    x46, x37, x28, x19 = (_natt(sd, f"natt{i + 1}", s, num_heads, nb[i], natt_int8, ln_fold)
+                          for i, s in enumerate((s1, s2, s3, s4)))
 
     def up(name, h_):
         return _conv(sd, f"{name}.1", upsample2x_align_corners(h_))
@@ -213,14 +356,14 @@ def pick_fastest(timings: Mapping[tuple, float], default=("xla", "plain")) -> tu
     return min(timings, key=timings.get)
 
 
-def _forward_seconds(deploy_vars: Tensors, x: torch.Tensor, num_heads: int,
-                     iters: int) -> Callable[[str, str], float]:
+def _forward_seconds(deploy_vars: Tensors, x: torch.Tensor, num_heads: int, iters: int,
+                     natt_int8: bool = False) -> Callable[[str, str], float]:
     """time_fn(rc, nat): seconds per ``deploy_forward`` after one warm-up
     call, by CUDA events on a CUDA tensor, by the host clock on a CPU one."""
     def time_fn(rc, nat):
         def run():
             return deploy_forward(deploy_vars, x, num_heads=num_heads,
-                                  nat_backend=nat, rc_backend=rc)
+                                  nat_backend=nat, rc_backend=rc, natt_int8=natt_int8)
 
         with torch.inference_mode():
             run()
@@ -248,22 +391,23 @@ def autoselect_backends(
     rc_candidates=("xla", "flat"),
     nat_candidates=("flat", "plain"),
     iters: int = 8,
+    natt_int8: bool = False,
     time_fn: Callable[[str, str], float] | None = None,
 ) -> tuple:
     """Time ``deploy_forward`` for every (rc, nat) candidate pair on the real
     input and return the fastest pair. 'pallas' is not a default candidate
     (as in JAX); pass it to try it. The choice and its timing table are
-    cached in ``AUTOTUNE_CACHE`` per (shape, dtype, num_heads, candidates).
-    ``time_fn(rc, nat) -> seconds`` can be injected.
+    cached in ``AUTOTUNE_CACHE`` per (shape, dtype, num_heads, natt_int8,
+    candidates). ``time_fn(rc, nat) -> seconds`` can be injected.
 
     Unlike JAX's sweep, a candidate that raises fails the call: a kernel
     that cannot launch is never hidden behind another backend.
     """
-    key = (tuple(x.shape), str(x.dtype), num_heads, tuple(rc_candidates),
+    key = (tuple(x.shape), str(x.dtype), num_heads, natt_int8, tuple(rc_candidates),
            tuple(nat_candidates))
     if key not in AUTOTUNE_CACHE:
         if time_fn is None:
-            time_fn = _forward_seconds(deploy_vars, x, num_heads, iters)
+            time_fn = _forward_seconds(deploy_vars, x, num_heads, iters, natt_int8)
         timings = {(rc, nat): time_fn(rc, nat)
                    for rc in rc_candidates for nat in nat_candidates}
         AUTOTUNE_CACHE[key] = (pick_fastest(timings), timings)
@@ -271,13 +415,13 @@ def autoselect_backends(
 
 
 def _resolve_auto(deploy_vars: Tensors, x: torch.Tensor, num_heads: int, rc_backend,
-                  nat_backend) -> tuple:
+                  nat_backend, natt_int8: bool = False) -> tuple:
     """Expand 'auto' in either slot through ``autoselect_backends``, pinning
     a slot that is not 'auto' to its value."""
     rc_cands = ("xla", "flat") if rc_backend == "auto" else (rc_backend,)
     nat_cands = ("flat", "plain") if nat_backend == "auto" else (nat_backend,)
     return autoselect_backends(deploy_vars, x, num_heads, rc_candidates=rc_cands,
-                               nat_candidates=nat_cands)
+                               nat_candidates=nat_cands, natt_int8=natt_int8)
 
 
 def serving_evaluate(
@@ -288,18 +432,21 @@ def serving_evaluate(
     nat_backend: str | tuple = "flat",
     rc_backend: str = "xla",
     num_heads: int = 12,
+    natt_int8: bool = False,
     task: str = "binary",
+    device: torch.device | str = "cuda",
 ) -> tuple[float, dict[str, float]]:
     """Evaluate a train-mode state dict through the serving path: reparam
-    once, then ``deploy_forward`` in bf16 over the loader's (uint8 images,
-    uint8 masks) numpy batches, on the device the state lives on. 'auto' in
-    either backend is resolved by ``autoselect_backends`` on the first batch
-    and kept for the rest.
+    once, move the deploy state to ``device`` (the card unless the caller
+    asks for the CPU), then ``deploy_forward`` in bf16 over the loader's
+    (uint8 images, uint8 masks) numpy batches. 'auto' in either backend is
+    resolved by ``autoselect_backends`` on the first batch and kept for the
+    rest.
 
     Returns (summed per-batch CE loss, derived metrics), as the JAX engine.
     """
-    deploy = structural_reparam(state)
-    device = next(iter(deploy.values())).device
+    device = torch.device(device)
+    deploy = {k: v.to(device) for k, v in structural_reparam(state).items()}
     cm = ConfusionAccumulator.init(num_classes, device)
     total = torch.zeros((), dtype=torch.float32, device=device)
     with torch.inference_mode():
@@ -311,10 +458,10 @@ def serving_evaluate(
             x = x.to(torch.bfloat16)
             if "auto" in (rc_backend, nat_backend):
                 rc_backend, nat_backend = _resolve_auto(deploy, x, num_heads, rc_backend,
-                                                        nat_backend)
+                                                        nat_backend, natt_int8)
             logits = deploy_forward(
                 deploy, x, num_heads=num_heads,
-                nat_backend=nat_backend, rc_backend=rc_backend,
+                nat_backend=nat_backend, rc_backend=rc_backend, natt_int8=natt_int8,
             )
             total += cross_entropy_loss(logits, y, (1.0, 4.0), 0.001)
             cm += confusion_matrix(logits.argmax(dim=-1), y, num_classes)

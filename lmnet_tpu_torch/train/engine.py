@@ -74,11 +74,12 @@ def create_train_state(
     model: torch.nn.Module,
     input_shape: Sequence[int],
     seed: int = 0,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
     **tx_kwargs,
 ) -> TrainState:
     """Move ``model`` (already initialised from its own generator) to
-    ``device`` (default: where it is) and build its optimiser
+    ``device`` (the card unless the caller asks for the CPU) and build its
+    optimiser
     (``make_optimizer(**tx_kwargs)``) and a dropout generator seeded with
     ``seed``. ``input_shape`` is the NHWC batch shape the model will train
     on: 3 channels, H and W multiples of 16 (four stride-2 stages)."""
@@ -86,7 +87,7 @@ def create_train_state(
         raise ValueError(f"input_shape must be NHWC with 3 channels, got {tuple(input_shape)}")
     if input_shape[1] % 16 or input_shape[2] % 16:
         raise ValueError(f"H and W must be multiples of 16, got {tuple(input_shape)}")
-    device = torch.device(device) if device is not None else next(model.parameters()).device
+    device = torch.device(device)
     model.to(device)
     optimizer, schedule = make_optimizer(model.parameters(), **tx_kwargs)
     generator = torch.Generator(device=device).manual_seed(seed)

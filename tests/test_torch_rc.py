@@ -451,7 +451,7 @@ def test_autoselect_backends_sweeps_caches_and_propagates(monkeypatch):
 
     calls.clear()
     monkeypatch.setattr(engine, "autoselect_backends",
-                        lambda dv, x, h, rc_candidates, nat_candidates: (
+                        lambda dv, x, h, rc_candidates, nat_candidates, natt_int8: (
                             calls.append((rc_candidates, nat_candidates)) or ("flat", "plain")))
     assert engine._resolve_auto({}, x, 2, "auto", "plain") == ("flat", "plain")
     assert engine._resolve_auto({}, x, 2, "pallas", "auto") == ("flat", "plain")
@@ -479,7 +479,7 @@ def test_serving_evaluate_auto_resolves_once(monkeypatch, deploy_pair):
         return real(*a, **kw)
 
     state = jax_to_state_dict(deploy_pair[2])
-    kw = dict(num_classes=2, img_size=32, num_heads=TINY["num_heads"])
+    kw = dict(num_classes=2, img_size=32, num_heads=TINY["num_heads"], device="cpu")
     loader = make_loader(SyntheticDataset(4, 32, "val", seed=3), 2)
     monkeypatch.setattr(engine, "deploy_forward", spy)
     loss, metrics = engine.serving_evaluate(state, loader, rc_backend="auto", **kw)

@@ -185,7 +185,7 @@ def test_serving_evaluate_bf16_matches_jax(variables, port_model, jax_deploy):
                                      num_heads=HEADS)
     t_loss, t_met = t_serving_evaluate(
         port_model.state_dict(), t_make_loader(TSyntheticDataset(4, HW, "val", seed=3), 2),
-        num_classes=2, img_size=HW, num_heads=HEADS,
+        num_classes=2, img_size=HW, num_heads=HEADS, device="cpu",
     )
     assert np.isfinite(t_loss)
     assert abs(t_loss - j_loss) <= 0.02 * abs(j_loss), (t_loss, j_loss)

@@ -208,7 +208,7 @@ def test_three_step_loss_trajectory_matches_jax(variables, jax_grad, no_dropout)
         params, opt_state = update(grads, opt_state, params)
         j_losses.append(float(loss))
 
-    state = create_train_state(_port_model(variables), (B, HW, HW, 3),
+    state = create_train_state(_port_model(variables), (B, HW, HW, 3), device="cpu",
                                epochs=EPOCHS, steps_per_epoch=STEPS_PER_EPOCH)
     cm = ConfusionAccumulator.init(2)
     t_losses = []
@@ -379,7 +379,7 @@ def test_bf16_policy_keeps_parameters_and_statistics_float32():
     m = TLMNet(**TINY, dtype=torch.bfloat16)
     seen = []
     m.natt4.att1.register_forward_hook(lambda mod, i, o: seen.append(o.dtype))
-    state = create_train_state(m, (B, HW, HW, 3))
+    state = create_train_state(m, (B, HW, HW, 3), device="cpu")
     x, y = _batches(1, seed=5)[0]
     state, loss, _ = train_step(state, torch.from_numpy(x), torch.from_numpy(y).long(),
                                 ConfusionAccumulator.init(2))
@@ -398,7 +398,7 @@ def test_train_one_epoch_and_evaluate_run_the_port_loop():
     from lmnet_tpu_torch.data import SyntheticDataset, make_loader
 
     model = TLMNet(**TINY, generator=torch.Generator().manual_seed(1))
-    state = create_train_state(model, (B, HW, HW, 3), epochs=2, steps_per_epoch=2)
+    state = create_train_state(model, (B, HW, HW, 3), device="cpu", epochs=2, steps_per_epoch=2)
     state, total, metrics = train_one_epoch(
         state, make_loader(SyntheticDataset(4, HW, "val", seed=0), B), img_size=HW,
         augment_on_device=False)
@@ -409,11 +409,23 @@ def test_train_one_epoch_and_evaluate_run_the_port_loop():
     assert np.isfinite(loss) and set(m) == keys
 
 
+def test_entry_points_default_to_the_card():
+    """``create_train_state`` and ``serving_evaluate`` run on 'cuda' unless
+    the caller asks for the CPU (JAX runs both on its default backend, the
+    accelerator); without a card the default raises, as torch does."""
+    import inspect
+
+    from lmnet_tpu_torch.serve import serving_evaluate
+
+    for fn in (create_train_state, serving_evaluate):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
 def test_unported_loop_options_raise():
-    state = create_train_state(TLMNet(**TINY), (B, HW, HW, 3))
+    state = create_train_state(TLMNet(**TINY), (B, HW, HW, 3), device="cpu")
     with pytest.raises(NotImplementedError):
         train_one_epoch(state, iter(()), augment_on_device=True)
     with pytest.raises(NotImplementedError):
         evaluate(state, iter(()), compute_hd95=True)
     with pytest.raises(ValueError):
-        create_train_state(TLMNet(**TINY), (B, 30, 30, 3))
+        create_train_state(TLMNet(**TINY), (B, 30, 30, 3), device="cpu")
