@@ -8,7 +8,9 @@ Phases, each printing a line, any failure raising (exit code != 0):
   2. build the eight kernels (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
      rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
      natt_flat.cu) with nvcc for sm_90a, one process per source, all
-     started together;
+     started together; print ptxas's registers and spills of rc_fused's and
+     rc_dw_gelu's kernels and the number of HMMA/HGMMA (tensor-core)
+     instructions in rc_fused's library (cuobjdump, where it is found);
   3. the forward kernel against its plain PyTorch version, in float32
      (TF32 off) and bfloat16, at the four NAT stage shapes of the 256^2
      model (B=2) and of the 288^2 training epoch (B=16), at H=W=28 with
@@ -50,14 +52,18 @@ Phases, each printing a line, any failure raising (exit code != 0):
      (rc_stats) at every ReparamConv shape of the 256^2 model (B=2) and of
      the 288^2 training epoch (B=16), B4 (rc_fused) at the five
      (H, Cin, E, Cout) of the 256^2 model (B=2), all three on a 5x5 map, a
-     28^2 map with E=20 and a W=7 strip; B5's sums and B6's statistics
-     bitwise equal over two calls;
+     28^2 map with E=20 and a W=7 strip (bf16 B4, whose 1x1 products run on
+     the tensor cores, two ways: against the plain version that rounds at
+     its points and against the float32 plain version); B5's sums, B6's
+     statistics and B4's phase-1 sums bitwise equal over two calls;
  11. serving at full width, 256^2, B=16, bf16, with rc_backend 'flat',
      'pallas' and 'auto' (serving_evaluate, launches counted; the pair
      'auto' picked and its timing table), each backend's logits against
      'xla' on one batch, deploy_forward times per backend in turns, and B4
      and B5 against their plain versions at the inputs of the 16 blocks of
-     a served batch, timed;
+     a served batch, timed beside their plain versions and the stock bf16
+     compositions that serve by default ('xla'), in total and for each of
+     the five block shapes;
  12. training with LMNet(dtype=bf16, rc_remat=True,
      rc_train_backend='fused'): one 'train' epoch at 288^2, B=16 with the
      B5 and B6 launches counted, evaluate; 'fused' against 'xla' on one
@@ -90,9 +96,10 @@ Phases, each printing a line, any failure raising (exit code != 0):
      bfloat16, and timed beside the unfused interior deploy_forward runs.
 
 Each kernel's bound is the least time the card could take for its work at
-the inputs it was timed on: the larger of its bytes (each input read once,
-each output written once) at 3.35 TB/s and its float32 operations (every
-kernel computes in float32) at 67 TFLOP/s.
+the inputs it was timed on: the largest of its bytes (each input read once,
+each output written once) at 3.35 TB/s, its float32 operations at 67
+TFLOP/s, and its operations that the tensor cores can take (B4's three 1x1
+products, B8's six C-mixing products) at 989 TFLOP/s (bf16, dense).
 
 The script's wall seconds come on a line before the kernels line, which
 lists every kernel of the paths as JSON; the line before the last is the
@@ -140,25 +147,37 @@ DW_SHAPES = ([(2, h, w, 2 * c) for h, w, c in STAGES_256]
 RC_KERNELS = ("rc_dw_gelu", "rc_stats", "rc_fused")
 KERNELS = ("nat_fwd", "nat_bwd", *RC_KERNELS, "nat_kernel", "upsample_flat", "natt_flat")
 # H100 SXM: HBM3 bytes per second; float32 operations per second outside
-# the tensor cores (NVIDIA's data sheet)
+# the tensor cores; bf16 operations per second on the tensor cores, dense
+# (NVIDIA's data sheet)
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
+TC_RATE = 989e12
 
 
 class Work:
-    """Bytes moved and float32 operations of a kernel's calls, summed."""
+    """Bytes moved, float32 operations and tensor-core operations of a
+    kernel's calls, summed."""
 
     def __init__(self):
-        self.nbytes = self.flops = 0.0
+        self.nbytes = self.flops = self.tc_flops = 0.0
 
-    def add(self, nbytes, flops):
+    def add(self, nbytes, flops, tc_flops=0.0):
         self.nbytes += nbytes
         self.flops += flops
+        self.tc_flops += tc_flops
+
+    def terms(self) -> dict:
+        """Least milliseconds for each: the bytes at HBM_RATE, the float32
+        operations at F32_RATE, the tensor-core operations at TC_RATE."""
+        return {"bytes": self.nbytes / HBM_RATE * 1e3, "f32": self.flops / F32_RATE * 1e3,
+                "tensor_core": self.tc_flops / TC_RATE * 1e3}
 
     def bound(self) -> tuple[float, str]:
-        """(least milliseconds, what bounds them)."""
-        t_bytes, t_ops = self.nbytes / HBM_RATE * 1e3, self.flops / F32_RATE * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        """(least milliseconds, what bounds them): the largest of the three
+        terms, 'bytes' or 'operations' (float32 or tensor-core)."""
+        t = self.terms()
+        ms = max(t.values())
+        return ms, "bytes" if t["bytes"] >= ms else "operations"
 
 
 def nat_fwd_work(q, C) -> tuple[float, float]:
@@ -730,26 +749,40 @@ def check_stats(label, e, ks, got, C) -> float:
 
 
 def check_rc(label, x, w, got) -> float:
-    """Hold B4's output against the plain block on x upcast to float32: f32
-    within 1e-4 (1 + max|ref|) (sums of up to 192 + 96 products and the SE
-    scale in another order), bf16 within 2^-8 |ref| more (one rounding of
-    the store). Print one line; raise on a mismatch. Returns the max abs
-    error."""
+    """Hold B4's output against the plain block. float32: within 1e-4 (1 +
+    max|ref|) of the float32 plain version (sums of up to 192 + 96 products
+    and the SE scale in another order). bf16 (tensor-core products), two
+    ways on the same bf16 x: within 2^-7 max|ref| of the plain version that
+    rounds at the kernel's points (We, Wp, Wsc and t*s to bf16; one
+    rounding of the stored y, float32 sums in another order), and within 2x
+    that version's distance from the float32 plain version, + 2^-8
+    max|ref|, of the float32 plain version. Print one line with the
+    distances; raise on a mismatch. Returns the max abs error against the
+    plain version of the kernel's own numerics."""
     from lmnet_tpu_torch.ops.rc_kernel import fused_reparam_conv_plain
 
     ref = fused_reparam_conv_plain(x.float(), w)
-    err = (got.float() - ref).abs()
-    bound = 1e-4 * (1 + ref.abs().max())
-    if x.dtype == torch.bfloat16:
-        bound = bound + 2**-8 * ref.abs()
-    ok = bool((err <= bound).all()) and got.shape == ref.shape and got.dtype == x.dtype
+    m = ref.abs().max().item()
     B, H, W, Cin = x.shape
-    print(f"{label}: rc_fused vs plain B={B} H={H} W={W} Cin={Cin} E={w['we'].shape[0]} "
-          f"Cout={w['wp'].shape[0]} {_dt(x.dtype)}: max_abs_err={err.max().item():.3e} on "
-          f"outputs of max {ref.abs().max().item():.3e} (tol 1e-4*(1+max|ref|)"
-          f"{' + 2^-8*|ref|' if x.dtype == torch.bfloat16 else ''}) {'ok' if ok else 'FAIL'}")
+    shape = (f"B={B} H={H} W={W} Cin={Cin} E={w['we'].shape[0]} Cout={w['wp'].shape[0]} "
+             f"{_dt(x.dtype)}")
+    if x.dtype == torch.float32:
+        err = (got - ref).abs().max().item()
+        ok = err <= 1e-4 * (1 + m)
+        msg = f"max_abs_err={err:.3e} on outputs of max {m:.3e} (tol 1e-4*(1+max|ref|))"
+    else:
+        rounded = fused_reparam_conv_plain(x, w).float()
+        err = (got.float() - rounded).abs().max().item()
+        d_f32 = (got.float() - ref).abs().max().item()
+        dist = (rounded - ref).abs().max().item()
+        ok = err <= 2**-7 * m and d_f32 <= 2 * dist + 2**-8 * m
+        msg = (f"vs bf16-rounding plain {err:.3e} (tol 2^-7*max|ref| = {2**-7 * m:.3e}), "
+               f"vs float32 plain {d_f32:.3e} (tol 2 x {dist:.3e} + 2^-8*max|ref| = "
+               f"{2 * dist + 2**-8 * m:.3e}), outputs of max {m:.3e}")
+    ok = ok and got.shape == ref.shape and got.dtype == x.dtype
+    print(f"{label}: rc_fused vs plain {shape}: {msg} {'ok' if ok else 'FAIL'}")
     check(ok, f"rc_fused disagrees with plain at {(B, H, W, Cin, x.dtype)}")
-    return err.max().item()
+    return err
 
 
 def rc_weights(seed, Cin, E, Cout, dev):
@@ -759,11 +792,15 @@ def rc_weights(seed, Cin, E, Cout, dev):
     def n(*shape, s=1.0):
         return (torch.randn(*shape, generator=g) * s).to(dev)
 
-    return dict(we=n(E, Cin, s=Cin**-0.5), be=n(E, s=0.1), kdw=n(25, E, s=0.2), bdw=n(E, s=0.1),
-                fc1_w=n(E // 4, E, s=E**-0.5), fc1_b=n(E // 4, s=0.1),
-                fc2_w=n(E, E // 4, s=(E // 4) ** -0.5), fc2_b=n(E, s=0.1),
-                wp=n(Cout, E, s=E**-0.5), bp=n(Cout, s=0.1), wsc=n(Cout, Cin, s=Cin**-0.5),
-                bsc=n(Cout, s=0.1))
+    from lmnet_tpu_torch.ops.rc_kernel import pack_rc_weights
+
+    w = dict(we=n(E, Cin, s=Cin**-0.5), be=n(E, s=0.1), kdw=n(25, E, s=0.2), bdw=n(E, s=0.1),
+             fc1_w=n(E // 4, E, s=E**-0.5), fc1_b=n(E // 4, s=0.1),
+             fc2_w=n(E, E // 4, s=(E // 4) ** -0.5), fc2_b=n(E, s=0.1),
+             wp=n(Cout, E, s=E**-0.5), bp=n(Cout, s=0.1), wsc=n(Cout, Cin, s=Cin**-0.5),
+             bsc=n(Cout, s=0.1))
+    w["packed"] = pack_rc_weights(w)
+    return w
 
 
 def branch_inputs(B, H, W, C, dtype, seed, dev):
@@ -776,6 +813,7 @@ def branch_inputs(B, H, W, C, dtype, seed, dev):
 
 def phase_rc_kernels(dev) -> dict:
     """Phase 10; returns the worst error of each kernel."""
+    from lmnet_tpu_torch.ops import rc_kernel
     from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
     from lmnet_tpu_torch.ops.rc_kernel import fused_reparam_conv
     from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
@@ -805,6 +843,11 @@ def phase_rc_kernels(dev) -> dict:
             x = torch.randn(B, H, W, Cin, generator=torch.Generator().manual_seed(i)).to(dev, dtype)
             got = fused_reparam_conv(x, w)
             worst["rc_fused"] = max(worst["rc_fused"], check_rc("phase 10", x, w, got))
+            if i == 1:  # phase 1's channel sums, twice on the same inputs
+                same = torch.equal(rc_kernel._phase1(x, w)[0], rc_kernel._phase1(x, w)[0])
+                print(f"phase 10: rc_fused phase-1 sums twice on the same inputs B={B} H={H} "
+                      f"W={W} Cin={Cin} E={E} {_dt(dtype)}: bitwise equal: {same}")
+                check(same, "rc_fused's phase-1 sums are not bitwise repeatable")
     return worst
 
 
@@ -903,7 +946,10 @@ def phase_rc_serving(model, dev, card_line):
               f"{BATCH * 1000 / float(np.mean(ts)):.1f} img/s" for rc, ts in times.items())
           + f" [{card_line}]")
 
-    # B4 and B5 against their plain versions at the inputs of the 16 blocks
+    # B4 and B5 against their plain versions at the inputs of the 16 blocks,
+    # timed beside the plain versions and the stock bf16 compositions that
+    # serve by default ('xla': engine._rc for B4; conv2d(groups=E) + tanh
+    # GELU + the channel sum for B5), in total and per block shape
     calls = []
     real = _capture(engine, "_rc", calls)
     try:
@@ -912,39 +958,68 @@ def phase_rc_serving(model, dev, card_line):
     finally:
         engine._rc = real
     check(len(calls) == 16, f"captured {len(calls)} ReparamConv inputs, want 16")
-    res = {"rc_dw_gelu": [0.0, 0.0, 0.0], "rc_fused": [0.0, 0.0, 0.0]}  # err, ms, plain ms
+    from lmnet_tpu_torch.models.blocks import conv_nhwc
+
+    def dw_xla(e4, fw):
+        t = torch.nn.functional.gelu(conv_nhwc(e4, fw["kd"], fw["bdw"], groups=e4.shape[-1]),
+                                     approximate="tanh")
+        return t, t.sum(dim=(1, 2))
+
+    # err, ms, plain ms, xla ms
+    res = {"rc_dw_gelu": [0.0, 0.0, 0.0, 0.0], "rc_fused": [0.0, 0.0, 0.0, 0.0]}
     work = {"rc_dw_gelu": Work(), "rc_fused": Work()}
+    by_shape = {}
     with torch.inference_mode():
         for sd, name, h, _ in calls:
             w = fold_rc_weights(sd, name)
             B, H, W, Cin = h.shape
             E, Cout = w["we"].shape[0], w["wp"].shape[0]
-            # x in, y out, the weights once; per pixel the expand, depthwise,
-            # pointwise and shortcut multiply-adds and ~20 activation
-            # operations per channel of e
+            # x in, y out, the weights once (bf16 matrices, float32 vectors);
+            # per pixel the expand, pointwise and shortcut multiply-adds on
+            # the tensor cores, the depthwise multiply-adds and ~20
+            # activation operations per channel of e in float32
             work["rc_fused"].add(B * H * W * (Cin + Cout) * h.element_size()
-                                 + 4 * sum(t.numel() for t in w.values()),
-                                 B * H * W * (2 * (Cin * E + 25 * E + E * Cout + Cin * Cout)
-                                              + 20 * E))
+                                 + 2 * (E * Cin + E * Cout + Cin * Cout) + 4 * (27 * E + 2 * Cout),
+                                 B * H * W * (2 * 25 * E + 20 * E),
+                                 B * H * W * 2 * (Cin * E + E * Cout + Cin * Cout))
             # e in, t out, per element 25 multiply-adds and ~20 for bias and GELU
             work["rc_dw_gelu"].add(2 * B * H * W * E * h.element_size(), 70 * B * H * W * E)
             got = fused_reparam_conv(h, w)
             res["rc_fused"][0] = max(res["rc_fused"][0], check_rc("phase 11", h, w, got))
-            res["rc_fused"][1] += cuda_ms(lambda: fused_reparam_conv(h, w))
-            res["rc_fused"][2] += cuda_ms(lambda: fused_reparam_conv_plain(h, w))
+            t4 = {"rc_fused": cuda_ms(lambda: fused_reparam_conv(h, w)),
+                  "rc_fused plain": cuda_ms(lambda: fused_reparam_conv_plain(h, w)),
+                  "rc_fused xla": cuda_ms(lambda: real(sd, name, h, "xla"))}
             fw = fold_rc_flat_weights(sd, name)
-            B, H, W, _ = h.shape
-            E = fw["we"].shape[0]
             e = torch.nn.functional.hardswish(torch.nn.functional.linear(
                 h, fw["we"].to(h.dtype), fw["be"].to(h.dtype))).reshape(B, H, W * E)
             t, sums = dw_gelu_flat(e, fw["kd"], fw["bdw"], E)
             res["rc_dw_gelu"][0] = max(res["rc_dw_gelu"][0],
                                        check_dw("phase 11", e, fw["kd"], fw["bdw"], t, sums, E))
-            res["rc_dw_gelu"][1] += cuda_ms(lambda: dw_gelu_flat(e, fw["kd"], fw["bdw"], E))
-            res["rc_dw_gelu"][2] += cuda_ms(lambda: dw_gelu_flat_plain(e, fw["kd"], fw["bdw"], E))
-    for k, (_, ms, pms) in res.items():
+            e4 = e.reshape(B, H, W, E)
+            t5 = {"rc_dw_gelu": cuda_ms(lambda: dw_gelu_flat(e, fw["kd"], fw["bdw"], E)),
+                  "rc_dw_gelu plain": cuda_ms(lambda: dw_gelu_flat_plain(e, fw["kd"], fw["bdw"],
+                                                                         E)),
+                  "rc_dw_gelu xla": cuda_ms(lambda: dw_xla(e4, fw))}
+            for k, t_ in {**t4, **t5}.items():
+                kernel, _, kind = k.partition(" ")
+                res[kernel][{"": 1, "plain": 2, "xla": 3}[kind]] += t_
+            row = by_shape.setdefault((H, Cin, E, Cout), {"blocks": 0, **{k: 0.0 for k in t4},
+                                                          **{k: 0.0 for k in t5}})
+            row["blocks"] += 1
+            for k, t_ in {**t4, **t5}.items():
+                row[k] += t_
+    for (H, Cin, E, Cout), row in by_shape.items():
+        print(f"phase 11: block shape {H}^2 Cin={Cin} E={E} Cout={Cout} B={BATCH} bf16, "
+              f"{row['blocks']} blocks: rc_fused {row['rc_fused']:.4f} ms (plain "
+              f"{row['rc_fused plain']:.4f}, xla {row['rc_fused xla']:.4f}); rc_dw_gelu "
+              f"{row['rc_dw_gelu']:.4f} ms (plain {row['rc_dw_gelu plain']:.4f}, xla "
+              f"{row['rc_dw_gelu xla']:.4f}) [{card_line}]")
+    for k, (_, ms, pms, xms) in res.items():
         print(f"phase 11: {k} over the 16 ReparamConv blocks of a served batch (256^2, B=16, "
-              f"bf16): kernel {ms:.4f} ms, plain {pms:.4f} ms [{card_line}]")
+              f"bf16): kernel {ms:.4f} ms, plain {pms:.4f} ms, stock bf16 composition (xla) "
+              f"{xms:.4f} ms (bound {work[k].bound()[0]:.4f} ms, {work[k].bound()[1]}; "
+              f"terms {json.dumps({t: round(v, 4) for t, v in work[k].terms().items()})}) "
+              f"[{card_line}]")
     serve_launches = {"rc_dw_gelu": launches["flat"]["rc_dw_gelu"],
                       "rc_fused": launches["pallas"]["rc_fused"]}
     return serve_launches, res, work
@@ -1510,10 +1585,12 @@ def phase_b8(model, dev, card_line):
             e = emb.reshape(B, H, W * C)
             unf = engine.natt_interior(deploy, name, emb, HEADS, "flat").reshape(B, H, W * C)
             d = (got.float() - unf.float()).abs().max().item()
-            # emb in, out; per pixel 8 C^2 multiply-adds (q, k, v, proj, fc1,
-            # fc2), the NAT's, ~56 C for the two LayerNorms and the GELU
-            work.add(2 * e.numel() * e.element_size() + 4 * sum(t.numel() for t in fw.values()),
-                     B * H * W * (16 * C * C + 36 * C + 36 * HEADS + 56 * C))
+            # emb in, out, the packed weights once; per pixel 8 C^2
+            # multiply-adds (q, k, v, proj, fc1, fc2) counted as tensor-core
+            # work, the NAT's and ~56 C for the two LayerNorms and the GELU
+            # as float32
+            work.add(2 * e.numel() * e.element_size() + 4 * fw["packed"].numel(),
+                     B * H * W * (36 * C + 36 * HEADS + 56 * C), B * H * W * 16 * C * C)
             t = {"natt_flat": cuda_ms(lambda: natt_flat_interior(e, fw, HEADS, C, W)),
                  "plain": cuda_ms(lambda: natt_flat_interior_plain(e, fw, HEADS, C, W), iters=5),
                  "unfused": cuda_ms(lambda: engine.natt_interior(deploy, name, emb, HEADS, "flat"))}
@@ -1529,13 +1606,61 @@ def phase_b8(model, dev, card_line):
              "unfused_ms": ms["unfused"]}, work, launches)
 
 
+def ptxas_report(log: str) -> list[str]:
+    """'kernel: N registers, S bytes spill stores, L bytes spill loads' for
+    each kernel in nvcc's -Xptxas=-v messages."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z][a-z_0-9]*_kernel|reduce_partials)(I\w*?EE)?", m.group(1))
+            name = (k.group(1) + (k.group(2) or "")) if k else m.group(1)[:48]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill or 'spills not reported'}")
+            name, spill = None, ""
+    return out
+
+
+def tensor_core_count(lib_path) -> str:
+    """The number of HMMA and HGMMA instructions in a built library's SASS,
+    by cuobjdump (the CUDA toolkit's, or Triton's copy), or 'cuobjdump not
+    found'."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    from lmnet_tpu_torch.ops import _build
+
+    candidates = [shutil.which("cuobjdump"), str(Path(_build.nvcc()).parent / "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(str(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"))
+    tool = next((c for c in candidates if c and Path(c).is_file()), None)
+    if tool is None:
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    words = sass.split()
+    hmma = sum(w.startswith("HMMA") for w in words)
+    hgmma = sum(w.startswith("HGMMA") for w in words)
+    return f"{hmma} HMMA and {hgmma} HGMMA instructions (cuobjdump -sass, {tool})"
+
+
 def entry(name, source, replaces, launches, numbers, work, **extra):
     """One kernel of the kernels line."""
     bound_ms, bound_by = work.bound()
     return {"name": name, "route": "cuda", "source": f"lmnet_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["ms"], "plain_ms": numbers["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": numbers.get("library_ms"), **extra}
+            "bound_by": bound_by, "library_ms": numbers.get("library_ms"),
+            "bound_terms_ms": work.terms(), **extra}
 
 
 def main() -> int:
@@ -1550,12 +1675,16 @@ def main() -> int:
           f"[{card_line}] torch {torch.__version__} cuda {torch.version.cuda}")
 
     t_start = t0 = time.perf_counter()
-    _build.build(*KERNELS)
+    logs = _build.build(*KERNELS)
     for name in KERNELS:
         _build.load(name)
     print(f"phase 2: {', '.join(KERNELS)} built in parallel from {_build.CSRC} -> "
           f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
+    for name in ("rc_fused", "rc_dw_gelu"):
+        for line in ptxas_report(logs.get(name, "")) or ["(built earlier; no report)"]:
+            print(f"phase 2: ptxas {name}.cu {line}")
+    print(f"phase 2: rc_fused's library: {tensor_core_count(_build.library_path('rc_fused'))}")
 
     worst = phase_kernel_vs_plain(dev)
     model = seeded_model(dev)
@@ -1592,12 +1721,13 @@ def main() -> int:
               sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches),
         entry("rc_fused", "rc_fused.cu", "lmnet_tpu/ops/pallas/rc_kernel.py:145",
               rc_serve_launches["rc_fused"], rc_numbers("rc_fused", rc_timed["rc_fused"]),
-              rc_work["rc_fused"]),
+              rc_work["rc_fused"], xla_ms=rc_timed["rc_fused"][3]),
         entry("rc_dw_gelu", "rc_dw_gelu.cu", "lmnet_tpu/ops/pallas/rc_flat.py:119",
               rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"],
               rc_numbers("rc_dw_gelu", rc_timed["rc_dw_gelu"]), rc_work["rc_dw_gelu"],
               launches_by_path={"serving": rc_serve_launches["rc_dw_gelu"],
-                                "training": rc_train_launches["rc_dw_gelu"]}),
+                                "training": rc_train_launches["rc_dw_gelu"]},
+              xla_ms=rc_timed["rc_dw_gelu"][3]),
         entry("rc_stats", "rc_stats.cu", "lmnet_tpu/ops/pallas/rc_train.py:140",
               rc_train_launches["rc_stats"], rc_numbers("rc_stats", stats_timed), b6_work),
         entry("upsample_flat", "upsample_flat.cu", "lmnet_tpu/ops/pallas/upsample_flat.py:148",

@@ -22,10 +22,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmnet_tpu_torch"
 
 # sm_90a keeps Hopper-only instructions (wgmma, setmaxnreg) available to the
-# sources; plain sm_90 would refuse them.
+# sources; plain sm_90 would refuse them. -Xptxas=-v reports each kernel's
+# registers and spills (``build`` returns the report).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -50,9 +51,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(*names: str) -> None:
+def build(*names: str) -> dict[str, str]:
     """Compile every ``csrc/<name>.cu`` whose library is missing, one nvcc
-    process per source, all started together; raise if any fails."""
+    process per source, all started together; raise if any fails. Returns
+    the compiler's messages (ptxas's registers and spills) by the names it
+    compiled."""
     jobs = []
     for name in names:
         path = library_path(name)
@@ -65,15 +68,17 @@ def build(*names: str) -> None:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((name, path, tmp, proc))
-    failed = []
+    failed, logs = [], {}
     for name, path, tmp, proc in jobs:
         out, err = proc.communicate()
+        logs[name] = out + err
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}\n{err}")
         else:
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return logs
 
 
 @functools.lru_cache(maxsize=None)

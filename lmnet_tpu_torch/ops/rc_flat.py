@@ -4,7 +4,8 @@
 Counterpart of ``lmnet_tpu/ops/pallas/rc_flat.py`` (``dw_gelu_flat``,
 ``fused_rc_block``, ``fold_rc_flat_weights``). On CUDA tensors
 ``dw_gelu_flat`` launches the hand-written kernel ``csrc/rc_dw_gelu.cu``
-(built by ``ops/_build.py``; a failed build or launch raises). On CPU
+(built by ``ops/_build.py``; a failed build or launch raises) with the
+launch geometry of ``dw_plan``, which the kernel checks. On CPU
 tensors it runs the plain version, ``dw_gelu_flat_plain``. The TPU weight
 layout (25 x W*C tiled taps with the border masks folded in) is not part of
 the function: the port takes the OIHW depthwise kernel ``(C, 1, 5, 5)`` and
@@ -14,6 +15,7 @@ the ``(C,)`` bias. Unlike the TPU kernel it takes every H, W >= 1.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping
 
 import torch
@@ -25,17 +27,55 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BN_EPS = 1e-5
 
 
+# csrc/rc_dw_gelu.cu's constants: a block's output tile (rows, columns), its
+# channels at most, a block's shared-memory limit on sm_90
+DW_TILE = (16, 32)
+DW_CHUNK = 32
+MAX_SMEM = 232448
+
+
+def _vec_bytes(n: int) -> int:
+    """The widest copy unit of 2, 4, 8 or 16 bytes that divides n bytes."""
+    return min(16, n & -n)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
+    """The launch geometry of ``csrc/rc_dw_gelu.cu`` for e (B, H, W*C) of
+    ``dtype``, or None for a shape it does not take: ``tile`` (rows,
+    columns), ``chunk`` channels a block (all C up to 32, else the largest of
+    32, 24, 16, 8 that divides C, else 32), ``nchunk`` chunks, ``vec`` the copy
+    unit in bytes (the widest of 16, 8, 4, 2 that divides C's channel run),
+    ``smem`` dynamic shared-memory bytes (the halo and t tile in e's dtype;
+    taps and a partial per thread, which computes two rows, in float32),
+    ``ntiles`` tiles per image, ``workspace`` float32 per-tile channel
+    sums. Cached: the caller must not change the dict."""
+    if not (0 < B <= 65535 and H > 0 and W > 0 and C > 0) or dtype not in _DTYPE_CODE:
+        return None
+    rows, cols = DW_TILE
+    esize = 4 if dtype == torch.float32 else 2
+    # all C up to 32; above, the largest of 32, 24, 16, 8 dividing C, else 32
+    ck = C if C <= DW_CHUNK else next((c for c in (32, 24, 16, 8) if C % c == 0), DW_CHUNK)
+    nchunk = -(-C // ck)
+    ntiles = -(-H // rows) * -(-W // cols)
+    tiles = ((rows + 4) * (cols + 4) + rows * cols) * ck * esize
+    smem = -(-tiles // 16) * 16 + (25 + rows // 2) * ck * 4
+    if ntiles > 0x7FFFFFFF or nchunk > 65535 or smem > MAX_SMEM:
+        return None
+    return dict(tile=DW_TILE, chunk=ck, nchunk=nchunk, vec=_vec_bytes(C * esize), smem=smem,
+                ntiles=ntiles, workspace=B * ntiles * C)
+
+
 def _kernel():
     lib = _build.load("rc_dw_gelu")
-    fn, ws = lib.lmnet_rc_dw_gelu, lib.lmnet_rc_dw_gelu_workspace
+    fn = lib.lmnet_rc_dw_gelu
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p] * 6 + [i, i, i, i, i, p]
+        ll = ctypes.c_longlong
+        fn.argtypes = [p] * 6 + [i] * 9 + [ll, ll, p]
         fn.restype = ctypes.c_int
-        ws.argtypes = [i, i, i, i]
-        ws.restype = ctypes.c_longlong
-    return fn, ws
+    return fn
 
 
 def check_cuda(name: str, act: torch.Tensor, *weights: torch.Tensor) -> None:
@@ -80,17 +120,17 @@ def dw_gelu_flat(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tens
     kernel5x5 = kernel5x5.float().contiguous()
     bias = bias.float().contiguous()
     check_cuda("dw_gelu_flat", e_flat, kernel5x5, bias)
-    fn, ws = _kernel()
-    n_part = ws(B, H, W, C)
-    if n_part < 0:
+    plan = dw_plan(B, H, W, C, e_flat.dtype)
+    if plan is None:
         raise ValueError(f"rc_dw_gelu does not take B={B} H={H} W={W} C={C}")
+    fn = _kernel()
     t = torch.empty_like(e_flat)
-    f32 = dict(dtype=torch.float32, device=e_flat.device)
-    sums = torch.empty(B, C, **f32)
-    part = torch.empty(n_part, **f32)
+    sums = torch.empty(B, C, dtype=torch.float32, device=e_flat.device)
+    part = torch.empty(plan["workspace"], dtype=torch.float32, device=e_flat.device)
     with torch.cuda.device(e_flat.device):
         err = fn(e_flat.data_ptr(), kernel5x5.data_ptr(), bias.data_ptr(), t.data_ptr(),
                  sums.data_ptr(), part.data_ptr(), B, H, W, C, _DTYPE_CODE[e_flat.dtype],
+                 *plan["tile"], plan["chunk"], plan["vec"], plan["smem"], plan["workspace"],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rc_dw_gelu launch failed: CUDA error {err}")
@@ -142,8 +182,9 @@ def fold_rc_flat_weights(sd: Mapping[str, torch.Tensor], name: str, eps: float =
 def se_scale(sums: torch.Tensor, w: dict, HW: int) -> torch.Tensor:
     """hardsigmoid(fc2(relu(fc1(mean)))) on the (B, E) float32 channel sums
     of an H*W = ``HW`` map, with the SE weights of ``w``."""
-    h = F.relu(F.linear(sums / HW, w["fc1_w"], w["fc1_b"]))
-    return F.hardsigmoid(F.linear(h, w["fc2_w"], w["fc2_b"]))
+    # the mean's 1/HW as addmm's alpha: one launch fewer than sums / HW
+    h = torch.addmm(w["fc1_b"], sums, w["fc1_w"].t(), alpha=1.0 / HW).relu_()
+    return F.hardsigmoid(F.linear(h, w["fc2_w"], w["fc2_b"]), inplace=True)
 
 
 def fused_rc_block(x: torch.Tensor, fw: dict) -> torch.Tensor:

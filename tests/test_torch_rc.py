@@ -31,10 +31,12 @@ from lmnet_tpu_torch.ops.rc_flat import (
     fold_rc_flat_weights,
     fused_rc_block,
 )
+from lmnet_tpu_torch.ops import rc_kernel
 from lmnet_tpu_torch.ops.rc_kernel import (
     fold_rc_weights,
     fused_reparam_conv,
     fused_reparam_conv_plain,
+    pack_rc_weights,
 )
 from lmnet_tpu_torch.ops.rc_train import (
     _fold_stats,
@@ -189,9 +191,10 @@ def _rc_deploy_variables(seed, cin, ec, cout, hw):
 
 def test_fused_reparam_conv_matches_jax_kernel():
     """B4 on a 8x8 map (JAX's kernel takes H, W >= 8; 11 s at H=16 in
-    interpret mode): the folded weights equal JAX's, and the block's output
-    matches JAX ``fused_reparam_conv(..., interpret=True)``; rtol 1e-4 /
-    atol 1e-5 x max."""
+    interpret mode): the folded weights equal JAX's (the port adds its
+    kernel's ``packed`` buffer), and the block's output matches JAX
+    ``fused_reparam_conv(..., interpret=True)``; rtol 1e-4 / atol 1e-5 x
+    max."""
     import jax.numpy as jnp
     from lmnet_tpu.ops.pallas.rc_kernel import fold_rc_weights as j_fold
     from lmnet_tpu.ops.pallas.rc_kernel import fused_reparam_conv as j_fused
@@ -200,8 +203,8 @@ def test_fused_reparam_conv_matches_jax_kernel():
     x = np.random.RandomState(5).randn(2, 8, 8, 5).astype(np.float32)
     jw = j_fold(jv["params"], jv["batch_stats"])
     w = fold_rc_weights(sd, "b")
-    assert set(w) == set(jw)
-    for k in w:
+    assert set(w) == set(jw) | {"packed"}
+    for k in jw:
         _close(w[k].numpy(), jw[k], 1e-6, 1e-6, k)
     want = j_fused(jnp.asarray(x), jw, interpret=True)
     got = fused_reparam_conv(torch.from_numpy(x), w)
@@ -579,11 +582,31 @@ def _rc_weights(seed, Cin, E, Cout, device):
     def n(*shape, s=1.0):
         return (torch.randn(*shape, generator=g) * s).to(device)
 
-    return dict(we=n(E, Cin, s=Cin**-0.5), be=n(E, s=0.1), kdw=n(25, E, s=0.2), bdw=n(E, s=0.1),
-                fc1_w=n(E // 4, E, s=E**-0.5), fc1_b=n(E // 4, s=0.1),
-                fc2_w=n(E, E // 4, s=(E // 4) ** -0.5), fc2_b=n(E, s=0.1),
-                wp=n(Cout, E, s=E**-0.5), bp=n(Cout, s=0.1), wsc=n(Cout, Cin, s=Cin**-0.5),
-                bsc=n(Cout, s=0.1))
+    w = dict(we=n(E, Cin, s=Cin**-0.5), be=n(E, s=0.1), kdw=n(25, E, s=0.2), bdw=n(E, s=0.1),
+             fc1_w=n(E // 4, E, s=E**-0.5), fc1_b=n(E // 4, s=0.1),
+             fc2_w=n(E, E // 4, s=(E // 4) ** -0.5), fc2_b=n(E, s=0.1),
+             wp=n(Cout, E, s=E**-0.5), bp=n(Cout, s=0.1), wsc=n(Cout, Cin, s=Cin**-0.5),
+             bsc=n(Cout, s=0.1))
+    w["packed"] = pack_rc_weights(w)
+    return w
+
+
+def check_bf16_two_ways(got, x, w):
+    """bf16 B4 output ``got`` on bf16 ``x``, held two ways (the bounds of
+    chip_smoke.py's phase 10): against the plain version that rounds at the
+    kernel's points within 2^-7 max|ref| (one rounding of the stored y and
+    float32 sums in another order), and against the float32 plain version
+    on the same bf16 x within 2x that version's distance from it + 2^-8
+    max|ref|. Returns the two distances."""
+    want_r = fused_reparam_conv_plain(x, w).float()
+    want_f = fused_reparam_conv_plain(x.float(), w)
+    m = want_f.abs().max().item()
+    d_r = (got.float() - want_r).abs().max().item()
+    d_f = (got.float() - want_f).abs().max().item()
+    dist = (want_r - want_f).abs().max().item()
+    assert d_r <= 2**-7 * m, (d_r, m)
+    assert d_f <= 2 * dist + 2**-8 * m, (d_f, dist, m)
+    return d_r, d_f
 
 
 @pytest.mark.gpu
@@ -592,7 +615,8 @@ def _rc_weights(seed, Cin, E, Cout, device):
 def test_fused_reparam_conv_kernel_matches_plain_on_card(cuda, dtype, B, H, W, Cin, E, Cout):
     """B4 against ``fused_reparam_conv_plain`` on the same inputs: f32
     within 1e-4 (1 + max|ref|) (sums of up to 192 + 96 products in another
-    order), bf16 within one rounding of the stored output plus that."""
+    order); bf16 (tensor-core products) the two ways of
+    ``check_bf16_two_ways``."""
     w = _rc_weights(Cin * E, Cin, E, Cout, cuda)
     x = torch.randn(B, H, W, Cin, generator=torch.Generator().manual_seed(H)).to(cuda, dtype)
     before = fused_reparam_conv.launches
@@ -600,14 +624,36 @@ def test_fused_reparam_conv_kernel_matches_plain_on_card(cuda, dtype, B, H, W, C
     torch.cuda.synchronize()
     assert fused_reparam_conv.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, H, W, Cout)
-    want = fused_reparam_conv_plain(x.float(), w)
-    bound = 1e-4 * (1 + want.abs().max())
     if dtype == torch.bfloat16:
-        bound = bound + 2**-8 * want.abs()
-    assert bool(((got.float() - want).abs() <= bound).all())
+        check_bf16_two_ways(got, x, w)
+    else:
+        want = fused_reparam_conv_plain(x, w)
+        assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs().max())).all())
     # a permuted (non-contiguous) input is copied, not refused
     xp = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     assert torch.equal(fused_reparam_conv(xp, w), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,Cin,E,Cout", [RC_SHAPES[2], RC_SHAPES[5]])
+def test_fused_reparam_conv_phase1_sums_repeat_bitwise(cuda, dtype, B, H, W, Cin, E, Cout):
+    """B4's phase 1 twice on the same inputs: bitwise-equal (B, E) channel
+    sums (per-tile partials reduced in a fixed order), within 1e-5 of the
+    sum of |t| per channel of the plain version's float32 t (on the same
+    rounded weights)."""
+    w = _rc_weights(E, Cin, E, Cout, cuda)
+    x = torch.randn(B, H, W, Cin, generator=torch.Generator().manual_seed(W)).to(cuda, dtype)
+    s1 = rc_kernel._phase1(x, w)[0]
+    s2 = rc_kernel._phase1(x, w)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2) and s1.shape == (B, E)
+    mat = (lambda k: w[k].to(dtype).float())
+    e = torch.nn.functional.hardswish(torch.nn.functional.linear(x.float(), mat("we"), w["be"]))
+    t = torch.nn.functional.gelu(torch.nn.functional.conv2d(
+        e.permute(0, 3, 1, 2), w["kdw"].t().reshape(E, 1, 5, 5), w["bdw"], padding=2, groups=E),
+        approximate="tanh")
+    assert bool(((s1 - t.sum(dim=(2, 3))).abs() <= 1e-5 * t.abs().sum(dim=(2, 3)) + 1e-6).all())
 
 
 @pytest.mark.gpu

@@ -1,0 +1,184 @@
+"""B4's bf16 numerics, its packed weights, and the launch plans of B4 and B5.
+
+On the CPU, all at small sizes:
+  * ``pack_rc_weights``: each bf16 matrix unpacked from the buffer equals the
+    folded weight rounded to bf16, its padding is zero, the float32 entries
+    equal the weights, and every shape matches ``rc_dims``/``pack_layout``,
+    at every (Cin, E, Cout) of ``RC_SHAPES`` (here and in chip_smoke.py);
+  * the plain version with the bf16 kernel's rounding points against JAX's
+    ``fused_reparam_conv(bf16 x, interpret=True)``, and against the float32
+    plain version;
+  * ``rc_plan`` and ``dw_plan`` at every shape of ``RC_SHAPES`` and
+    ``DW_SHAPES`` (here and in chip_smoke.py): shared memory within the
+    block limit, tiles that cover the map, the workspace and packed sizes.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lmnet_tpu_torch.ops.rc_flat import dw_plan
+from lmnet_tpu_torch.ops.rc_kernel import (
+    MAX_PAIRS,
+    MAX_SMEM,
+    fold_rc_weights,
+    fused_reparam_conv,
+    fused_reparam_conv_plain,
+    pack_layout,
+    pack_rc_weights,
+    rc_dims,
+    rc_plan,
+)
+from test_torch_rc import DW_SHAPES, RC_SHAPES, _rc_deploy_variables, _rc_weights
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_SMOKE = _chip_smoke()
+ALL_RC = sorted(set(RC_SHAPES) | set(_SMOKE.RC_SHAPES))
+ALL_DW = sorted(set(DW_SHAPES) | set(_SMOKE.DW_SHAPES))
+
+
+def _unpack(buf, name, Cin, E, Cout):
+    off, shape, dtype = pack_layout(Cin, E, Cout)[name]
+    n = int(np.prod(shape))
+    if dtype == torch.float32:
+        return buf[off:off + n].reshape(shape)
+    return buf[off:off + n // 2].view(torch.bfloat16).reshape(shape)
+
+
+@pytest.mark.parametrize("Cin,E,Cout", sorted({s[3:] for s in ALL_RC}))
+def test_pack_rc_weights_unpacks_to_the_rounded_weights(Cin, E, Cout):
+    w = _rc_weights(Cin * E + Cout, Cin, E, Cout, "cpu")
+    buf = w["packed"]
+    lay = pack_layout(Cin, E, Cout)
+    d = rc_dims(Cin, E, Cout)
+    assert buf.dtype == torch.float32 and buf.shape == (lay["total"],)
+    assert all(v[0] % 4 == 0 for k, v in lay.items() if k != "total")
+    for name, key in (("weT", "we"), ("wpT", "wp"), ("wscT", "wsc")):
+        assert torch.equal(_unpack(buf, name, Cin, E, Cout), w[key].t())
+    for name in ("be", "kdw", "bdw", "bp", "bsc"):
+        assert torch.equal(_unpack(buf, name, Cin, E, Cout), w[name])
+
+    we16 = _unpack(buf, "we16", Cin, E, Cout)
+    assert we16.shape == (d["nchunk"] * d["ec"], d["kx"]) and d["nchunk"] * d["ec"] >= E
+    assert d["kx"] % 16 == 0 and d["kx"] >= Cin
+    assert torch.equal(we16[:E, :Cin], w["we"].to(torch.bfloat16))
+    assert not we16[E:].any() and not we16[:, Cin:].any()
+
+    wp16 = _unpack(buf, "wp16", Cin, E, Cout)
+    assert wp16.shape == (d["np"], d["nchunk"], d["kc"]) and d["kc"] % 16 == 0
+    assert d["np"] % 8 == 0 and d["np"] >= Cout
+    cols = wp16[:, :, :d["ec"]].reshape(d["np"], -1)
+    assert torch.equal(cols[:Cout, :E], w["wp"].to(torch.bfloat16))
+    assert not cols[Cout:].any() and not cols[:, E:].any() and not wp16[:, :, d["ec"]:].any()
+
+    wsc16 = _unpack(buf, "wsc16", Cin, E, Cout)
+    assert wsc16.shape == (d["np"], d["kx"])
+    assert torch.equal(wsc16[:Cout, :Cin], w["wsc"].to(torch.bfloat16))
+    assert not wsc16[Cout:].any() and not wsc16[:, Cin:].any()
+    # fold_rc_weights packs the same buffer
+    assert torch.equal(pack_rc_weights({k: v for k, v in w.items() if k != "packed"}), buf)
+
+
+def test_fold_rc_weights_packs():
+    _, sd = _rc_deploy_variables(4, 5, 16, 6, (8, 8))
+    w = fold_rc_weights(sd, "b")
+    assert torch.equal(w["packed"], pack_rc_weights({k: v for k, v in w.items()
+                                                     if k != "packed"}))
+
+
+def test_plain_bf16_rounding_matches_jax_kernel():
+    """The plain version at the bf16 kernel's rounding points (e float32)
+    against JAX ``fused_reparam_conv(bf16 x, interpret=True)`` at 8x8, B=2:
+    JAX's TPU kernel also rounds e, the depthwise sums (bf16 arithmetic) and
+    t * s to bf16, so the two differ by a few bf16 roundings of the largest
+    intermediates; within 3e-2 max|ref|."""
+    import jax.numpy as jnp
+    from lmnet_tpu.ops.pallas.rc_kernel import fold_rc_weights as j_fold
+    from lmnet_tpu.ops.pallas.rc_kernel import fused_reparam_conv as j_fused
+
+    jv, sd = _rc_deploy_variables(4, 5, 16, 6, (8, 8))
+    x = np.random.RandomState(5).randn(2, 8, 8, 5).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = np.asarray(j_fused(jnp.asarray(x).astype(jnp.bfloat16),
+                              j_fold(jv["params"], jv["batch_stats"]), interpret=True)
+                      .astype(jnp.float32))
+    got = fused_reparam_conv(xb, fold_rc_weights(sd, "b"))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 8, 8, 6)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 3e-2 * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,H,W,Cin,E,Cout", [RC_SHAPES[1], RC_SHAPES[3], RC_SHAPES[5]])
+def test_plain_bf16_rounding_against_float32(B, H, W, Cin, E, Cout):
+    """The plain version that rounds at the bf16 kernel's points against
+    the float32 plain version on the same bf16 x: it differs (it rounds),
+    by at most 2^-6 max|ref| (bf16 weights and t * s, 2^-9 relative each,
+    through sums of up to 192 products). That distance is what phase 10 of
+    chip_smoke.py scales its bound on the kernel by."""
+    w = _rc_weights(E, Cin, E, Cout, "cpu")
+    x = torch.randn(B, H, W, Cin, generator=torch.Generator().manual_seed(B + H)).bfloat16()
+    r = fused_reparam_conv_plain(x, w)
+    f = fused_reparam_conv_plain(x.float(), w)
+    assert r.dtype == torch.bfloat16 and f.dtype == torch.float32
+    m = f.abs().max().item()
+    dist = (r.float() - f).abs().max().item()
+    assert 0 < dist <= 2**-6 * m, (dist, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,Cin,E,Cout", ALL_RC)
+def test_rc_plan_fits_and_covers(dtype, B, H, W, Cin, E, Cout):
+    plan = rc_plan(B, H, W, Cin, E, Cout, dtype)
+    assert plan is not None
+    (rows, cols), (s1, s2) = plan["tile"], plan["smem"]
+    assert 0 < s1 <= s2 <= MAX_SMEM
+    ty, tx = -(-H // rows), -(-W // cols)
+    assert ty * rows >= H > (ty - 1) * rows and tx * cols >= W > (tx - 1) * cols
+    assert plan["workspace"] == B * ty * tx * E
+    assert plan["packed"] == pack_layout(Cin, E, Cout)["total"]
+    if dtype == torch.bfloat16:
+        d = rc_dims(Cin, E, Cout)
+        assert cols in (8, 16) and rows == 8
+        nwarps = rows * d["ec"] // 32
+        assert -(-(rows * cols // 16) * (d["np"] // 8) // nwarps) <= MAX_PAIRS
+        assert ((rows + 4) * (cols + 4)) % 16 == 0
+    else:
+        assert (rows, cols) == (8, 8)
+
+
+def test_rc_plan_refuses_what_the_kernel_does_not_take():
+    assert rc_plan(1, 8, 8, 4, 8, 4, torch.float16) is None
+    assert rc_plan(0, 8, 8, 4, 8, 4, torch.bfloat16) is None
+    # a 2-warp chunk (E = 8) cannot keep 96 outputs' y tiles in registers
+    assert rc_plan(1, 8, 8, 4, 8, 192, torch.bfloat16) is None
+    # the 32^2 stage at B=16 takes 8x8 tiles (an 8x16 tile leaves 128 blocks)
+    assert rc_plan(16, 32, 32, 96, 192, 96, torch.bfloat16)["tile"] == (8, 8)
+    assert rc_plan(16, 256, 256, 12, 24, 12, torch.bfloat16)["tile"] == (8, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C", ALL_DW)
+def test_dw_plan_fits_and_covers(dtype, B, H, W, C):
+    plan = dw_plan(B, H, W, C, dtype)
+    assert plan is not None
+    rows, cols = plan["tile"]
+    assert 0 < plan["smem"] <= MAX_SMEM
+    ty, tx = -(-H // rows), -(-W // cols)
+    assert plan["ntiles"] == ty * tx and ty * rows >= H and tx * cols >= W
+    assert plan["workspace"] == B * plan["ntiles"] * C
+    assert plan["chunk"] * plan["nchunk"] >= C > plan["chunk"] * (plan["nchunk"] - 1)
+    esize = 4 if dtype == torch.float32 else 2
+    vec = plan["vec"]
+    assert vec in (2, 4, 8, 16) and (C * esize) % vec == 0 and (plan["chunk"] * esize) % vec == 0
+    assert vec == 16 or (C * esize) % (2 * vec) != 0  # the widest that divides
