@@ -8,9 +8,10 @@ Phases, each printing a line, any failure raising (exit code != 0):
   2. build the eight kernels (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
      rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
      natt_flat.cu) with nvcc for sm_90a, one process per source, all
-     started together; print ptxas's registers and spills of rc_fused's and
-     rc_dw_gelu's kernels and the number of HMMA/HGMMA (tensor-core)
-     instructions in rc_fused's library (cuobjdump, where it is found);
+     started together; print ptxas's registers and spills of nat_fwd's,
+     nat_bwd's, rc_fused's and rc_dw_gelu's kernels and the number of
+     HMMA/HGMMA (tensor-core) instructions in rc_fused's library (cuobjdump,
+     where it is found);
   3. the forward kernel against its plain PyTorch version, in float32
      (TF32 off) and bfloat16, at the four NAT stage shapes of the 256^2
      model (B=2) and of the 288^2 training epoch (B=16), at H=W=28 with
@@ -22,10 +23,12 @@ Phases, each printing a line, any failure raising (exit code != 0):
      kernel launch counted, and two checks of the output: the deploy graph
      against the model's own eval forward (float32, small input), and the
      'flat' NAT backend against 'plain' on one served bf16 batch;
-  5. serving times from CUDA events after a warm-up: the forward kernel
-     against the plain version at each 256^2 stage shape (B=16, bf16; the
-     kernel's output held against the plain one as in phase 3), and the
-     serving rate at 256^2, B=16;
+  5. serving times from CUDA events after a warm-up: the forward kernel at
+     each 256^2 stage shape (B=16, bf16; its output held against the plain
+     one as in phase 3), eagerly and as a CUDA graph of the same call
+     (device time alone), beside its bytes, GB/s, bound and the launch
+     plan's variant, which must be the vectorised one; the plain version;
+     and the serving rate at 256^2, B=16;
   6. the backward kernel against the plain backward (autograd of the plain
      NAT) for dq, dk, dv and d_rpb, in float32 and bfloat16, at the shapes
      of phase 3, and two calls bitwise equal (288^2 stage, B=16);
@@ -40,8 +43,10 @@ Phases, each printing a line, any failure raising (exit code != 0):
      loss and the gradients of every NAT layer, each backend against a
      float32 step from the same weights);
   9. training times from CUDA events after a warm-up: the backward kernel
-     against the plain backward at each 256^2 stage (B=16, bf16; the
-     kernel's output held against the plain one as in phase 6), and
+     at each 256^2 stage (B=16, bf16; its output held against the plain one
+     as in phase 6), eagerly and as a CUDA graph, with bytes, GB/s, bound
+     and variant as in phase 5 (vectorised at all four stages), the plain
+     backward, and
      train_step at 256^2, B=16, bf16, rc_remat=True with flat and with
      plain NAT in turns (img/s, peak device memory, NAT launches per step);
      a torch.profiler pass over flat train steps (kernel launches, device
@@ -99,7 +104,9 @@ Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
 each output written once) at 3.35 TB/s, its float32 operations at 67
 TFLOP/s, and its operations that the tensor cores can take (B4's three 1x1
-products, B8's six C-mixing products) at 989 TFLOP/s (bf16, dense).
+products, B8's six C-mixing products) at 989 TFLOP/s (bf16, dense). B1's
+and B2's entries also carry ``ms_by_stage``: phase 5's and phase 9's
+per-stage eager and CUDA-graph times.
 
 The script's wall seconds come on a line before the kernels line, which
 lists every kernel of the paths as JSON; the line before the last is the
@@ -213,6 +220,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Milliseconds per replay of ``fn`` captured as a CUDA graph: the
+    device time of its launches, with no host work between them."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, iters=iters)
+
+
+def stage_line(label, name, B, H, W, C, nbytes, ms, g_ms, plan, card_line) -> dict:
+    """Print one stage's eager and CUDA-graph times beside its bytes, rate,
+    bound and the plan's variant; return them as the kernels line keeps
+    them. The stage must take the vectorised variant."""
+    bound = nbytes / HBM_RATE * 1e3
+    print(f"{label}: {name} stage H={H} W={W} C={C} hd={C // HEADS} B={B} bf16 "
+          f"[{plan['variant']}, tile {plan['tile'][0]}x{plan['tile'][1]}, "
+          f"{plan['heads_per_block']} heads a block, {plan['threads']} threads, "
+          f"{plan['smem']} B shared]: eager {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
+          f"CUDA graph {g_ms:.4f} ms ({nbytes / g_ms / 1e6:.1f} GB/s) of {nbytes / 1e6:.1f} MB, "
+          f"bound {bound:.4f} ms [{card_line}]")
+    check(plan["variant"] == "vec", f"{name} at H={H} C={C} took the {plan['variant']} variant")
+    return {"H": H, "W": W, "C": C, "hd": C // HEADS, "variant": plan["variant"],
+            "mb": nbytes / 1e6, "bound_ms": bound, "ms": ms, "graph_ms": g_ms,
+            "gb_s": nbytes / ms / 1e6}
 
 
 def nat_inputs(B, H, W, C, dtype, seed, dev):
@@ -345,27 +385,30 @@ def phase_serving(model, dev):
 
 def phase_times(deploy, xb, card_line):
     from lmnet_tpu_torch.ops.nat import neighborhood_attention
-    from lmnet_tpu_torch.ops.nat_flat import nat_flat
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_plan
     from lmnet_tpu_torch.serve import deploy_forward
 
     dev = xb.device
     k_total = p_total = worst = 0.0
     work = Work()
+    stages = []
     for i, (H, W, C) in enumerate(STAGES_256):
         q, k, v, rpb = nat_inputs(BATCH, H, W, C, torch.bfloat16, 100 + i, dev)
         work.add(*nat_fwd_work(q, C))
         q4, k4, v4 = (t.reshape(BATCH, H, W, C) for t in (q, k, v))
+        fwd = lambda: nat_flat(q, k, v, rpb, HEADS, C, W)  # noqa: E731
         with torch.inference_mode():
-            got = nat_flat(q, k, v, rpb, HEADS, C, W)
+            got = fwd()
             worst = max(worst, check_fwd("phase 5", got, q, k, v, rpb, BATCH, H, W, C))
-            k_ms = cuda_ms(lambda: nat_flat(q, k, v, rpb, HEADS, C, W))
+            k_ms, g_ms = cuda_ms(fwd), graph_ms(fwd)
             p_ms = cuda_ms(lambda: neighborhood_attention(q4, k4, v4, rpb, 3))
-        nbytes = 4 * q.numel() * q.element_size()
         k_total += k_ms
         p_total += p_ms
-        print(f"phase 5: nat stage H={H} W={W} C={C} hd={C // HEADS} B={BATCH} bf16: "
-              f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB), "
-              f"plain {p_ms:.4f} ms [{card_line}]")
+        stages.append(stage_line("phase 5", "nat_fwd", BATCH, H, W, C,
+                                 4 * q.numel() * q.element_size(), k_ms, g_ms,
+                                 nat_plan(BATCH, H, W, HEADS, C // HEADS, q.dtype, "fwd"),
+                                 card_line))
+        print(f"phase 5:   plain nat stage H={H}: {p_ms:.4f} ms [{card_line}]")
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
         f_ms = cuda_ms(lambda: deploy_forward(deploy, xb, num_heads=HEADS), iters=10)
@@ -375,7 +418,10 @@ def phase_times(deploy, xb, card_line):
     print(f"phase 5: deploy_forward bf16 {IMG}^2 B={BATCH}: nat flat {f_ms:.3f} ms/batch = "
           f"{BATCH * 1000 / f_ms:.1f} img/s (peak {peak:.2f} GiB); nat plain {pl_ms:.3f} ms/batch = "
           f"{BATCH * 1000 / pl_ms:.1f} img/s [{card_line}]")
-    return k_total, p_total, worst, work
+    print(f"phase 5: nat_fwd over the four stages: eager {k_total:.4f} ms, CUDA graph "
+          f"{sum(st['graph_ms'] for st in stages):.4f} ms, bound {work.bound()[0]:.4f} ms "
+          f"[{card_line}]")
+    return k_total, p_total, worst, work, stages
 
 
 def check_bwd(label, got, q, k, v, rpb, g, B, H, W, C, scale) -> float:
@@ -623,11 +669,12 @@ def _profile_steps(state, x, y, steps):
 
 def phase_train_times(dev, card_line):
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
-    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd, nat_flat_bwd_plain
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd, nat_flat_bwd_plain, nat_plan
     from lmnet_tpu_torch.train import create_train_state, train_step
 
     k_total = p_total = worst = 0.0
     work = Work()
+    stages = []
     for i, (H, W, C) in enumerate(STAGES_256):
         q, k, v, rpb = nat_inputs(BATCH, H, W, C, torch.bfloat16, 500 + i, dev)
         # q, k, v, g in, dq, dk, dv out; per element the 9 logits, 9 dP, and
@@ -638,14 +685,20 @@ def phase_train_times(dev, card_line):
         scale = float(C // HEADS) ** -0.5
         got = nat_flat_bwd(q, k, v, rpb, g, HEADS, C, W, scale)
         worst = max(worst, check_bwd("phase 9", got, q, k, v, rpb, g, BATCH, H, W, C, scale))
-        k_ms = cuda_ms(lambda: nat_flat_bwd(q, k, v, rpb, g, HEADS, C, W, scale))
+        bwd = lambda: nat_flat_bwd(q, k, v, rpb, g, HEADS, C, W, scale)  # noqa: E731
+        k_ms, g_ms = cuda_ms(bwd), graph_ms(bwd)
         p_ms = cuda_ms(lambda: nat_flat_bwd_plain(q, k, v, rpb, g, HEADS, C, W, scale))
         k_total += k_ms
         p_total += p_ms
-        nbytes = 7 * q.numel() * q.element_size()
-        print(f"phase 9: nat_bwd stage H={H} W={W} C={C} hd={C // HEADS} B={BATCH} bf16: "
-              f"kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB "
-              f"q,k,v,g in + dq,dk,dv out), plain {p_ms:.4f} ms [{card_line}]")
+        # q, k, v, g in + dq, dk, dv out
+        stages.append(stage_line("phase 9", "nat_bwd", BATCH, H, W, C,
+                                 7 * q.numel() * q.element_size(), k_ms, g_ms,
+                                 nat_plan(BATCH, H, W, HEADS, C // HEADS, q.dtype, "bwd"),
+                                 card_line))
+        print(f"phase 9:   plain nat backward stage H={H}: {p_ms:.4f} ms [{card_line}]")
+    print(f"phase 9: nat_bwd over the four stages: eager {k_total:.4f} ms, CUDA graph "
+          f"{sum(st['graph_ms'] for st in stages):.4f} ms, bound {work.bound()[0]:.4f} ms "
+          f"[{card_line}]")
 
     x, y = _batch(BATCH, IMG, "val", 7, dev)
     states = {nb: create_train_state(_train_model(dev, nat_backend=nb, seed=4),
@@ -695,7 +748,7 @@ def phase_train_times(dev, card_line):
     print(f"phase 9: train_step mean of two turns: flat {flat_ms:.3f} ms "
           f"({BATCH * 1000 / flat_ms:.1f} img/s), plain {plain_ms:.3f} ms "
           f"({BATCH * 1000 / plain_ms:.1f} img/s) [{card_line}]")
-    return k_total, p_total, worst, work
+    return k_total, p_total, worst, work, stages
 
 
 def _dt(dtype) -> str:
@@ -1681,7 +1734,7 @@ def main() -> int:
     print(f"phase 2: {', '.join(KERNELS)} built in parallel from {_build.CSRC} -> "
           f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
-    for name in ("rc_fused", "rc_dw_gelu"):
+    for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu"):
         for line in ptxas_report(logs.get(name, "")) or ["(built earlier; no report)"]:
             print(f"phase 2: ptxas {name}.cu {line}")
     print(f"phase 2: rc_fused's library: {tensor_core_count(_build.library_path('rc_fused'))}")
@@ -1689,12 +1742,12 @@ def main() -> int:
     worst = phase_kernel_vs_plain(dev)
     model = seeded_model(dev)
     deploy, serve_launches, xb = phase_serving(model, dev)
-    k_ms, p_ms, worst_timed, b1_work = phase_times(deploy, xb, card_line)
+    k_ms, p_ms, worst_timed, b1_work, b1_stages = phase_times(deploy, xb, card_line)
     del deploy, xb
     worst_bwd = phase_bwd_vs_plain(dev)
     launches = phase_training(dev)
     phase_flat_vs_plain_step(dev)
-    kb_ms, pb_ms, worst_bwd_timed, b2_work = phase_train_times(dev, card_line)
+    kb_ms, pb_ms, worst_bwd_timed, b2_work, b2_stages = phase_train_times(dev, card_line)
     worst_rc = phase_rc_kernels(dev)
     rc_serve_launches, rc_timed, rc_work = phase_rc_serving(model, dev, card_line)
     rc_train_launches, stats_timed, b6_work = phase_rc_training(dev, card_line)
@@ -1712,11 +1765,12 @@ def main() -> int:
         entry("nat_fwd", "nat_fwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:249",
               launches["nat_fwd"] + serve_launches,
               {"max_abs_err": max(worst, worst_timed), "ms": k_ms, "plain_ms": p_ms}, b1_work,
-              launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches}),
+              launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches},
+              ms_by_stage=b1_stages),
         entry("nat_bwd", "nat_bwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:563",
               launches["nat_bwd"],
               {"max_abs_err": max(worst_bwd, worst_bwd_timed), "ms": kb_ms, "plain_ms": pb_ms},
-              b2_work),
+              b2_work, ms_by_stage=b2_stages),
         entry("nat_kernel", "nat_kernel.cu", "lmnet_tpu/ops/pallas/nat_kernel.py:231",
               sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches),
         entry("rc_fused", "rc_fused.cu", "lmnet_tpu/ops/pallas/rc_kernel.py:145",

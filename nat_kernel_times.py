@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Times the two NAT kernels of the default path, B1 (nat_fwd) and B2
+(nat_bwd), at the four NAT stages of a 256^2, B=16 LM-Net forward (12 heads,
+bf16) on one CUDA card, three ways: eagerly (CUDA events over back-to-back
+calls, as chip_smoke.py times them), replayed as a CUDA graph (device time
+alone, no host work), and per CUDA kernel under torch.profiler. Beside each
+stage: its bytes (B1: q, k, v in and out once; B2: q, k, v, g in and dq, dk,
+dv out once), their bound at 3.35 TB/s, the rate reached and the launch
+plan's variant. Random inputs from a seed; each kernel is held against its
+plain version first.
+
+Run from the repository root: ``python3 nat_kernel_times.py``. With
+``--tree DIR`` it times the kernels of the ``lmnet_tpu_torch`` package
+under DIR instead (an unpacked earlier commit, for a comparison in one
+call). It exits 1 without a card. The last line is one JSON object with the
+per-stage times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+import chip_smoke as cs
+from rc_kernel_times import device_us
+
+
+def _variant(kind, B, H, W, C) -> str:
+    """The plan's variant for this call, where the tree has a plan."""
+    import importlib
+
+    nf = importlib.import_module("lmnet_tpu_torch.ops.nat_flat")
+    plan = getattr(nf, "nat_plan", None)
+    if plan is None:
+        return "n/a"
+    p = plan(B, H, W, cs.HEADS, C // cs.HEADS, torch.bfloat16, kind)
+    return p["variant"] if p else "refused"
+
+
+def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("--tree", help="time the lmnet_tpu_torch package under this directory")
+    tree = args.parse_args().tree
+    if tree:
+        sys.path.insert(0, tree)
+    if not torch.cuda.is_available():
+        print("nat_kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
+
+    card = cs.card()
+    dev = torch.device("cuda")
+    B = cs.BATCH
+    stages, total = [], {}
+    for i, (H, W, C) in enumerate(cs.STAGES_256):
+        q, k, v, rpb = cs.nat_inputs(B, H, W, C, torch.bfloat16, 700 + i, dev)
+        g = torch.randn(B, H, W * C, generator=torch.Generator().manual_seed(800 + i))
+        g = g.to(dev, torch.bfloat16)
+        scale = float(C // cs.HEADS) ** -0.5
+        with torch.inference_mode():
+            cs.check_fwd("nat_kernel_times", nat_flat(q, k, v, rpb, cs.HEADS, C, W),
+                         q, k, v, rpb, B, H, W, C)
+        cs.check_bwd("nat_kernel_times", nat_flat_bwd(q, k, v, rpb, g, cs.HEADS, C, W, scale),
+                     q, k, v, rpb, g, B, H, W, C, scale)
+        fwd = lambda: nat_flat(q, k, v, rpb, cs.HEADS, C, W)  # noqa: E731
+        bwd = lambda: nat_flat_bwd(q, k, v, rpb, g, cs.HEADS, C, W, scale)  # noqa: E731
+        row = {"H": H, "W": W, "C": C, "hd": C // cs.HEADS}
+        for name, fn, nio, kind in (("nat_fwd", fwd, 4, "fwd"), ("nat_bwd", bwd, 7, "bwd")):
+            nbytes = nio * q.numel() * q.element_size()
+            with torch.inference_mode():
+                eager, graph = cs.cuda_ms(fn), cs.graph_ms(fn)
+            row[name] = {"ms": eager, "graph_ms": graph, "mb": nbytes / 1e6,
+                         "bound_ms": nbytes / cs.HBM_RATE * 1e3,
+                         "gb_s": nbytes / eager / 1e6, "graph_gb_s": nbytes / graph / 1e6,
+                         "variant": _variant(kind, B, H, W, C)}
+            for key in ("ms", "graph_ms", "bound_ms"):
+                total[f"{name} {key}"] = total.get(f"{name} {key}", 0.0) + row[name][key]
+            r = row[name]
+            print(f"{name} H={H} W={W} C={C} hd={C // cs.HEADS} B={B} bf16 [{r['variant']}]: "
+                  f"eager {r['ms']:.4f} ms ({r['gb_s']:.1f} GB/s), graph {r['graph_ms']:.4f} ms "
+                  f"({r['graph_gb_s']:.1f} GB/s) of {r['mb']:.1f} MB, bound {r['bound_ms']:.4f} ms "
+                  f"[{card}]")
+            with torch.inference_mode():
+                us = device_us(fn)
+            print(f"   {name} device us a call by kernel: "
+                  + "; ".join(f"{kk} {v:.1f}" for kk, v in list(us.items())[:4]))
+        stages.append(row)
+    print("the four 256^2 stages, ms: "
+          + ", ".join(f"{kk} {v:.4f}" for kk, v in total.items()) + f" [{card}]")
+    import lmnet_tpu_torch
+
+    print(json.dumps({"card": card, "package": lmnet_tpu_torch.__file__, "stages": stages,
+                      "total": total}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

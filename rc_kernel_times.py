@@ -23,21 +23,6 @@ SHAPES = [(256, 3, 24, 12, 1), (256, 12, 24, 12, 3), (128, 24, 48, 24, 4),
           (64, 48, 96, 48, 4), (32, 96, 192, 96, 4)]
 
 
-def graph_ms(fn, iters=20):
-    """Milliseconds per replay of ``fn`` captured as a CUDA graph."""
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    return cs.cuda_ms(g.replay, iters=iters)
-
-
 def device_us(fn, calls=5):
     """Device microseconds per call of ``fn`` by CUDA kernel name."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -72,9 +57,9 @@ def main() -> int:
         b = (torch.randn(E, generator=g) * 0.1).to(dev)
         cs.check_dw("rc_kernel_times", e, k, b, *dw_gelu_flat(e, k, b, E), E)
         b4, b5 = (lambda: fused_reparam_conv(x, w)), (lambda: dw_gelu_flat(e, k, b, E))
-        ms = {"B4": cs.cuda_ms(b4), "B4 graph": graph_ms(b4),
+        ms = {"B4": cs.cuda_ms(b4), "B4 graph": cs.graph_ms(b4),
               "B4 plain": cs.cuda_ms(lambda: fused_reparam_conv_plain(x, w)),
-              "B5": cs.cuda_ms(b5), "B5 graph": graph_ms(b5),
+              "B5": cs.cuda_ms(b5), "B5 graph": cs.graph_ms(b5),
               "B5 plain": cs.cuda_ms(lambda: dw_gelu_flat_plain(e, k, b, E))}
         print(f"{H}^2 Cin={Cin} E={E} Cout={Cout} B=16 bf16, ms a call: "
               + ", ".join(f"{kk} {v:.4f}" for kk, v in ms.items()) + f" [{card}]")

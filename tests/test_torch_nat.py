@@ -18,6 +18,9 @@ import no JAX, so on the card they run with
 comparisons import JAX inside the test.
 """
 
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -221,11 +224,20 @@ def _flat_case(device, dtype, B, H, W, heads, hd, seed=0):
     return flat, torch.from_numpy(rpb).to(device), C
 
 
+# shapes that exercise the tiled kernels' edges: a W that is no multiple of
+# the 32-column tile, C = 12 at head_dim 1 (a 24-byte bf16 pixel, 8-byte
+# copies), H = W = 3, W = 4, B = 1, head_dim 3 (the generic variant) and one
+# 256^2 stage at B = 2
+TILE_SHAPES = [(1, 20, 37, 12, 1), (2, 9, 17, 12, 1), (1, 3, 3, 12, 1), (2, 16, 4, 12, 4),
+               (1, 33, 40, 12, 2), (1, 12, 12, 12, 3), (2, 256, 256, 12, 1)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "B,H,W,heads,hd",
-    [(2, 3, 3, 2, 2), (1, 28, 28, 12, 3), (2, 9, 17, 3, 1), (1, 16, 8, 2, 8), (1, 5, 7, 1, 16)],
+    [(2, 3, 3, 2, 2), (1, 28, 28, 12, 3), (2, 9, 17, 3, 1), (1, 16, 8, 2, 8), (1, 5, 7, 1, 16)]
+    + TILE_SHAPES,
 )
 def test_kernel_matches_plain_on_card(cuda, dtype, B, H, W, heads, hd):
     """Kernel vs the plain version on the same (bf16-rounded) inputs in
@@ -275,7 +287,7 @@ def _bwd_on_card(device, dtype, B, H, W, heads, hd, seed=0):
 @pytest.mark.parametrize(
     "B,H,W,heads,hd",
     [(2, h, w, n, d) for (h, w), n, d in BWD_KERNEL_SHAPES + BWD_FALLBACK_SHAPES]
-    + [(1, 16, 8, 2, 8), (1, 5, 7, 1, 16), (2, 32, 32, 12, 8)],
+    + [(1, 16, 8, 2, 8), (1, 5, 7, 1, 16), (2, 32, 32, 12, 8)] + TILE_SHAPES,
 )
 def test_bwd_kernel_matches_plain_on_card(cuda, dtype, B, H, W, heads, hd):
     """The CUDA backward against ``nat_flat_bwd_plain`` in float32 on the
@@ -302,11 +314,38 @@ def test_bwd_kernel_matches_plain_on_card(cuda, dtype, B, H, W, heads, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_kernel_is_bitwise_deterministic(cuda, dtype):
-    (q, k, v, g), rpb, C = _bwd_on_card(cuda, dtype, 2, 64, 64, 12, 4, seed=1)
-    a = nat_flat_bwd(q, k, v, rpb, g, 12, C, 64, 0.5)
-    b = nat_flat_bwd(q, k, v, rpb, g, 12, C, 64, 0.5)
+@pytest.mark.parametrize("B,H,W,heads,hd", [(2, 64, 64, 12, 4)] + TILE_SHAPES)
+def test_bwd_kernel_is_bitwise_deterministic(cuda, dtype, B, H, W, heads, hd):
+    (q, k, v, g), rpb, C = _bwd_on_card(cuda, dtype, B, H, W, heads, hd, seed=1)
+    a = nat_flat_bwd(q, k, v, rpb, g, heads, C, W, 0.5)
+    b = nat_flat_bwd(q, k, v, rpb, g, heads, C, W, 0.5)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("field", ["threads", "smem", "heads_per_block", "tile", "vec_bytes"])
+def test_kernels_refuse_a_plan_that_is_not_theirs(cuda, monkeypatch, kind, field):
+    """The C entry computes its own launch plan and refuses (CUDA error 1,
+    cudaErrorInvalidValue) one that differs: the wrapper raises and counts
+    no launch."""
+    nf = importlib.import_module("lmnet_tpu_torch.ops.nat_flat")
+    (q, k, v, g), rpb, C = _bwd_on_card(cuda, torch.bfloat16, 1, 20, 37, 12, 1)
+    good = nf.nat_plan(1, 20, 37, 12, 1, torch.bfloat16, kind)
+    bad = dict(good, **{field: (good[field][0] // 2, good[field][1]) if field == "tile"
+                        else good[field] // 2})
+    monkeypatch.setattr(nf, "nat_plan", lambda *a: bad)
+    # a fresh cache of the C arguments, made from the patched plan
+    monkeypatch.setattr(nf, "_plan_args", functools.lru_cache(None)(nf._plan_args.__wrapped__))
+    counter = nat_flat if kind == "fwd" else nat_flat_bwd
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        if kind == "fwd":
+            with torch.no_grad():
+                nat_flat(q, k, v, rpb, 12, C, 37)
+        else:
+            nat_flat_bwd(q, k, v, rpb, g, 12, C, 37, 1.0)
+    assert counter.launches == before
 
 
 @pytest.mark.gpu
