@@ -9,9 +9,9 @@ Phases, each printing a line, any failure raising (exit code != 0):
      rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
      natt_flat.cu) with nvcc for sm_90a, one process per source, all
      started together; print ptxas's registers and spills of nat_fwd's,
-     nat_bwd's, rc_fused's and rc_dw_gelu's kernels and the number of
-     HMMA/HGMMA (tensor-core) instructions in rc_fused's library (cuobjdump,
-     where it is found);
+     nat_bwd's, rc_fused's, rc_dw_gelu's, rc_stats's and natt_flat's
+     kernels and the number of HMMA/HGMMA (tensor-core) instructions in
+     rc_fused's and natt_flat's libraries (cuobjdump, where it is found);
   3. the forward kernel against its plain PyTorch version, in float32
      (TF32 off) and bfloat16, at the four NAT stage shapes of the 256^2
      model (B=2) and of the 288^2 training epoch (B=16), at H=W=28 with
@@ -59,8 +59,9 @@ Phases, each printing a line, any failure raising (exit code != 0):
      (H, Cin, E, Cout) of the 256^2 model (B=2), all three on a 5x5 map, a
      28^2 map with E=20 and a W=7 strip (bf16 B4, whose 1x1 products run on
      the tensor cores, two ways: against the plain version that rounds at
-     its points and against the float32 plain version); B5's sums, B6's
-     statistics and B4's phase-1 sums bitwise equal over two calls;
+     its points and against the float32 plain version); B5's sums and B4's
+     phase-1 sums bitwise equal over two calls, B6's statistics at every
+     shape;
  11. serving at full width, 256^2, B=16, bf16, with rc_backend 'flat',
      'pallas' and 'auto' (serving_evaluate, launches counted; the pair
      'auto' picked and its timing table), each backend's logits against
@@ -78,7 +79,10 @@ Phases, each printing a line, any failure raising (exit code != 0):
      train_step times for both in three turns each with peak memory, a
      torch.profiler pass over two steps of each (device kernels and busy
      time per step), and B6 against its plain version at the inputs of the
-     16 blocks of a training forward, timed;
+     16 blocks of a training forward (bitwise repeated), timed for each of
+     its four block shapes eagerly and as a CUDA graph, beside its plain
+     version and the stock bf16 composition that 'xla' training runs for
+     the same statistics (stats_stock);
  13. B3 (nat_kernel, nat_backend='pallas') against the plain NAT and against
      B1 on the same inputs, float32 and bfloat16, at phase 3's shapes and
      the timed 256^2 B=16 stage inputs (B3, B1 and plain times per stage);
@@ -97,16 +101,19 @@ Phases, each printing a line, any failure raising (exit code != 0):
      256^2 B=16 bf16: logits against the default's, and deploy_forward
      times in turns;
  16. B8 (natt_flat) on the embeddings of the four NATT stages of a served
-     batch: launches counted, against its plain version in float32 and
-     bfloat16, and timed beside the unfused interior deploy_forward runs.
+     batch: launches counted, against its plain versions (check_b8: float32;
+     bf16, whose products run on the tensor cores, two ways) at the four
+     stages and at B8_SHAPES, each stage timed eagerly and as a CUDA graph
+     beside the unfused interior deploy_forward runs (eager and graph).
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
 each output written once) at 3.35 TB/s, its float32 operations at 67
 TFLOP/s, and its operations that the tensor cores can take (B4's three 1x1
-products, B8's six C-mixing products) at 989 TFLOP/s (bf16, dense). B1's
-and B2's entries also carry ``ms_by_stage``: phase 5's and phase 9's
-per-stage eager and CUDA-graph times.
+products, B8's six C-mixing products) at 989 TFLOP/s (bf16, dense). B1's,
+B2's, B6's and B8's entries also carry ``ms_by_stage``: phase 5's, 9's,
+12's and 16's per-stage (B6: per block shape) eager and CUDA-graph times;
+B4's, B5's and B6's carry ``xla_ms``, the stock bf16 composition's time.
 
 The script's wall seconds come on a line before the kernels line, which
 lists every kernel of the paths as JSON; the line before the last is the
@@ -667,6 +674,21 @@ def _profile_steps(state, x, y, steps):
     return state, kernels, busy_ms, wall_ms, prof
 
 
+def rc_step_ms(kernels, steps) -> dict:
+    """Device ms a step of the 'fused' ReparamConv kernels among profiled
+    ``kernels``: B6 (rc_stats), B5 (dw_gelu), and the reductions of their
+    tiles' partials (reduce_partials*, which on a training step only these
+    two launch), and their sum."""
+    out = {"B6": 0.0, "B5": 0.0, "reductions": 0.0}
+    for e in kernels:
+        key = ("B6" if "rc_stats" in e.name else "B5" if "dw_gelu" in e.name
+               else "reductions" if "reduce_partials" in e.name else None)
+        if key:
+            out[key] += e.time_range.elapsed_us() / 1000 / steps
+    out["sum"] = out["B6"] + out["B5"] + out["reductions"]
+    return out
+
+
 def phase_train_times(dev, card_line):
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
     from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd, nat_flat_bwd_plain, nat_plan
@@ -838,6 +860,42 @@ def check_rc(label, x, w, got) -> float:
     return err
 
 
+def check_b8(label, emb, fw, heads, C, W, got) -> float:
+    """Hold B8's output against its plain versions on the same emb.
+    float32: within 1e-4 (1 + max|ref|) of the float32 plain version (sums
+    of up to 2C products and two LayerNorms in another order). bf16
+    (products on the tensor cores), two ways: within 2^-7 max|ref| of the
+    plain version that rounds at the kernel's points (the weights and the
+    four A operands to bf16; one rounding of the stored value, float32 sums
+    in another order), and within 2x that version's distance from the
+    float32 plain version, + 2^-8 max|ref|, of the float32 plain version.
+    Print one line with the distances; raise on a mismatch. Returns the max
+    abs error against the plain version of the kernel's own numerics."""
+    from lmnet_tpu_torch.ops.natt_flat import natt_flat_interior_plain
+
+    B, H, WC = emb.shape
+    ref = natt_flat_interior_plain(emb.float(), fw, heads, C, W)
+    m = ref.abs().max().item()
+    if emb.dtype == torch.float32:
+        err = (got - ref).abs().max().item()
+        ok = err <= 1e-4 * (1 + m)
+        msg = f"max_abs_err={err:.3e} on outputs of max {m:.3e} (tol 1e-4 (1 + max|ref|))"
+    else:
+        rounded = natt_flat_interior_plain(emb, fw, heads, C, W).float()
+        err = (got.float() - rounded).abs().max().item()
+        d_f32 = (got.float() - ref).abs().max().item()
+        dist = (rounded - ref).abs().max().item()
+        ok = err <= 2**-7 * m and d_f32 <= 2 * dist + 2**-8 * m
+        msg = (f"vs bf16-rounding plain {err:.3e} (tol 2^-7*max|ref| = {2**-7 * m:.3e}), "
+               f"vs float32 plain {d_f32:.3e} (tol 2 x {dist:.3e} + 2^-8*max|ref| = "
+               f"{2 * dist + 2**-8 * m:.3e}), outputs of max {m:.3e}")
+    ok = ok and got.shape == emb.shape and got.dtype == emb.dtype
+    print(f"{label}: natt_flat vs plain B={B} H={H} W={W} C={C} heads={heads} "
+          f"{_dt(emb.dtype)}: {msg} {'ok' if ok else 'FAIL'}")
+    check(ok, f"natt_flat disagrees with plain at {(B, H, W, C, heads, emb.dtype)}")
+    return err
+
+
 def rc_weights(seed, Cin, E, Cout, dev):
     """Random ``fold_rc_weights``-shaped float32 weights, fan-in scaled."""
     g = torch.Generator().manual_seed(seed)
@@ -864,6 +922,47 @@ def branch_inputs(B, H, W, C, dtype, seed, dev):
     return e, ks
 
 
+def stats_stock(e, ks, C):
+    """The stock bf16 composition that 'xla' training runs for B6's
+    statistics (models/blocks.py: ConvBN's conv, then BatchNorm's float32
+    mean and mean square): the four branch convs of e (B, H, W*C) in e's
+    dtype and, per branch, the float32 mean and mean of squares, (4, 2, C).
+    B6's yardstick: four convs and eight reductions, no single library call."""
+    from lmnet_tpu_torch.models.blocks import conv_nhwc
+
+    B, H, WC = e.shape
+    e4 = e.reshape(B, H, WC // C, C)
+    out = []
+    for k in ks:
+        y = conv_nhwc(e4, k, None, 1, C).float()
+        out.append(torch.stack([y.mean(dim=(0, 1, 2)), y.square().mean(dim=(0, 1, 2))]))
+    return torch.stack(out)
+
+
+# (H, E, blocks) of the ReparamConv blocks of a 256^2 training forward: the
+# inputs B6 takes there (B = BATCH)
+B6_BLOCKS = [(256, 24, 4), (128, 48, 4), (64, 96, 4), (32, 192, 4)]
+
+
+def natt_state(seed, C, heads, dev, name="natt"):
+    """A random NATT block ``name`` as raw state-dict entries (the keys
+    ``fold_natt_weights`` and ``serve.engine.natt_interior`` read), float32,
+    fan-in scaled, LayerNorm affines near (1, 0)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, s=1.0, base=0.0):
+        return (base + torch.randn(*shape, generator=g) * s).to(dev)
+
+    w = {"norm1.weight": n(C, s=0.1, base=1.0), "norm1.bias": n(C, s=0.1),
+         "att1.qkv.weight": n(3 * C, C, s=C**-0.5), "att1.qkv.bias": n(3 * C, s=0.1),
+         "att1.rpb": n(heads, 5, 5, s=0.3),
+         "att1.proj.weight": n(C, C, s=C**-0.5), "att1.proj.bias": n(C, s=0.1),
+         "norm2.weight": n(C, s=0.1, base=1.0), "norm2.bias": n(C, s=0.1),
+         "mlp.fc1.weight": n(2 * C, C, s=C**-0.5), "mlp.fc1.bias": n(2 * C, s=0.1),
+         "mlp.fc2.weight": n(C, 2 * C, s=(2 * C) ** -0.5), "mlp.fc2.bias": n(C, s=0.1)}
+    return {f"{name}.{k}": v for k, v in w.items()}
+
+
 def phase_rc_kernels(dev) -> dict:
     """Phase 10; returns the worst error of each kernel."""
     from lmnet_tpu_torch.ops import rc_kernel
@@ -883,12 +982,14 @@ def phase_rc_kernels(dev) -> dict:
             worst["rc_dw_gelu"] = max(worst["rc_dw_gelu"], check_dw("phase 10", e, k, b, t, sums, C))
             stats = rc_branch_stats(e, *ks, C)
             worst["rc_stats"] = max(worst["rc_stats"], check_stats("phase 10", e, ks, stats, C))
+            check(torch.equal(stats, rc_branch_stats(e, *ks, C)),
+                  f"rc_stats is not bitwise repeatable at {(B, H, W, C, dtype)}")
             if B == BATCH and H == STAGES_288[0][0]:
-                same = (torch.equal(sums, dw_gelu_flat(e, k, b, C)[1])
-                        and torch.equal(stats, rc_branch_stats(e, *ks, C)))
-                print(f"phase 10: rc_dw_gelu sums and rc_stats twice on the same inputs "
-                      f"B={B} H={H} W={W} C={C} {_dt(dtype)}: bitwise equal: {same}")
-                check(same, "rc_dw_gelu or rc_stats is not bitwise repeatable")
+                same = torch.equal(sums, dw_gelu_flat(e, k, b, C)[1])
+                print(f"phase 10: rc_dw_gelu sums twice on the same inputs B={B} H={H} W={W} "
+                      f"C={C} {_dt(dtype)}: bitwise equal: {same}; rc_stats bitwise equal over "
+                      f"two calls at every shape above")
+                check(same, "rc_dw_gelu is not bitwise repeatable")
             del e, ks, t
     for i, (B, H, W, Cin, E, Cout) in enumerate(RC_SHAPES):
         w = rc_weights(800 + i, Cin, E, Cout, dev)
@@ -1080,11 +1181,12 @@ def phase_rc_serving(model, dev, card_line):
 
 def phase_rc_training(dev, card_line):
     """Phase 12; returns (training launches of B5 and B6, B6's worst error
-    and summed kernel and plain ms at the timed inputs)."""
+    and summed kernel, plain and stock-composition ms at the timed inputs,
+    its work, and its times by block shape)."""
     from lmnet_tpu_torch.data import SyntheticDataset, make_loader
     from lmnet_tpu_torch.models import blocks
     from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
-    from lmnet_tpu_torch.ops.rc_train import rc_branch_stats, rc_branch_stats_plain
+    from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
     from lmnet_tpu_torch.train import create_train_state, evaluate, train_one_epoch
 
     n_images = 32
@@ -1219,12 +1321,13 @@ def phase_rc_training(dev, card_line):
     for rb in ("xla", "fused"):
         steps = 2
         states[rb], kernels, busy_ms, wall_ms, _ = _profile_steps(states[rb], x, y, steps)
-        rc_ms = sum(e.time_range.elapsed_us() for e in kernels
-                    if "rc_stats" in e.name or "dw_gelu" in e.name) / 1000
+        rc = rc_step_ms(kernels, steps)
         print(f"phase 12: profiled {steps} train steps, rc_train_backend {rb}: "
               f"{len(kernels) / steps:.0f} device kernels per step, device busy "
               f"{busy_ms / steps:.3f} ms per step of {wall_ms / steps:.3f} ms profiled wall, "
-              f"B5 + B6 kernels {rc_ms / steps:.3f} ms per step [{card_line}]")
+              f"B5 + B6 kernels and their reductions {rc['sum']:.3f} ms per step (B6 "
+              f"{rc['B6']:.3f}, B5 {rc['B5']:.3f}, reductions {rc['reductions']:.3f}) "
+              f"[{card_line}]")
 
     calls = []
     real = _capture(blocks, "rc_branch_act", calls)
@@ -1235,8 +1338,21 @@ def phase_rc_training(dev, card_line):
         blocks.rc_branch_act = real
     del states
     check(len(calls) == 16, f"captured {len(calls)} fused ReparamConv inputs, want 16")
-    err = ms = pms = 0.0
+    err, total, work, by_shape = time_b6(calls, card_line)
+    return train_launches, (err, total["ms"], total["plain_ms"], total["xla_ms"]), work, by_shape
+
+
+def time_b6(calls, card_line):
+    """B6 at the captured inputs of a training forward's 16 blocks: held
+    against its plain version and bitwise repeated at each, then timed
+    eagerly and as a CUDA graph beside its plain version and the stock
+    bf16 composition (stats_stock), summed by block shape. Returns (worst
+    error, the sums over the 16 blocks, its work, the rows by shape)."""
+    from lmnet_tpu_torch.ops.rc_train import rc_branch_stats, rc_branch_stats_plain
+
+    err = 0.0
     work = Work()
+    shapes = {}  # (H, C) -> summed times of its blocks
     with torch.no_grad():
         for e, k5, k3, kv, kh, *_, C, _eps in calls:
             ks = [k5, k3, kv, kh]
@@ -1245,11 +1361,35 @@ def phase_rc_training(dev, card_line):
             work.add(e.numel() * e.element_size(), 96 * e.numel())
             got = rc_branch_stats(e, *ks, C)
             err = max(err, check_stats("phase 12", e, ks, got, C))
-            ms += cuda_ms(lambda: rc_branch_stats(e, *ks, C))
-            pms += cuda_ms(lambda: rc_branch_stats_plain(e, *ks, C))
+            check(torch.equal(got, rc_branch_stats(e, *ks, C)),
+                  f"rc_stats is not bitwise repeatable at {tuple(e.shape)}")
+            fn = lambda: rc_branch_stats(e, *ks, C)  # noqa: E731
+            stock = lambda: stats_stock(e, ks, C)  # noqa: E731
+            t = {"ms": cuda_ms(fn), "graph_ms": graph_ms(fn),
+                 "plain_ms": cuda_ms(lambda: rc_branch_stats_plain(e, *ks, C), iters=5),
+                 "xla_ms": cuda_ms(stock), "xla_graph_ms": graph_ms(stock),
+                 "bound_ms": 96 * e.numel() / F32_RATE * 1e3, "blocks": 1}
+            row = shapes.setdefault((e.shape[1], C), dict.fromkeys(t, 0.0))
+            for k, v in t.items():
+                row[k] += v
+    total = {k: sum(r[k] for r in shapes.values()) for k in ("ms", "graph_ms", "plain_ms",
+                                                              "xla_ms", "xla_graph_ms")}
+    by_shape = []
+    for (H, C), r in shapes.items():
+        flops = 96 * BATCH * H * H * C * r["blocks"]
+        print(f"phase 12: rc_stats at the {int(r['blocks'])} training-forward blocks of shape "
+              f"{H}^2 E={C} B={BATCH} bf16: eager {r['ms']:.4f} ms "
+              f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), CUDA graph "
+              f"{r['graph_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (operations), plain "
+              f"{r['plain_ms']:.4f} ms, stock bf16 composition {r['xla_ms']:.4f} ms "
+              f"(graph {r['xla_graph_ms']:.4f}) [{card_line}]")
+        by_shape.append({"H": H, "W": H, "C": C, **r, "tflop_s": flops / r["ms"] / 1e9})
     print(f"phase 12: rc_stats over the 16 ReparamConv blocks of a training forward (256^2, "
-          f"B=16, bf16): kernel {ms:.4f} ms, plain {pms:.4f} ms [{card_line}]")
-    return train_launches, (err, ms, pms), work
+          f"B=16, bf16): kernel {total['ms']:.4f} ms eager, {total['graph_ms']:.4f} ms as CUDA "
+          f"graphs, plain {total['plain_ms']:.4f} ms, the stock bf16 composition 'xla' runs for "
+          f"the same statistics {total['xla_ms']:.4f} ms (graph {total['xla_graph_ms']:.4f}); "
+          f"bound {work.bound()[0]:.4f} ms [{card_line}]")
+    return err, total, work, by_shape
 
 
 def check_b3(label, got, q, k, v, rpb, B, H, W, C) -> float:
@@ -1582,13 +1722,35 @@ def phase_options(model, dev, card_line):
         + f" [{card_line}]")
 
 
+# (B, H, W, heads, head_dim) at which phase 16 also holds B8 against its
+# plain versions (tests/test_torch_natt.py holds it at the same shapes on the
+# card): LM-Net's four NATT widths (12 heads), a 3x3 map, head_dim 3, maps
+# that end mid-tile
+B8_SHAPES = [(2, 32, 32, 12, 1), (2, 16, 24, 12, 2), (1, 16, 16, 12, 4), (2, 8, 8, 12, 8),
+             (1, 3, 3, 2, 2), (1, 11, 7, 4, 3), (1, 19, 21, 2, 16)]
+
+
+def natt_work(B, H, W, C, heads, packed_words):
+    """B8's work on (B, H, W*C) bf16 emb: emb in and out once and the
+    float32 weights once; per pixel the NAT's and ~56 C float32 operations
+    (two LayerNorms, the GELU, the residuals), and 8 C^2 multiply-adds (q,
+    k, v, proj, fc1, fc2) of tensor-core work."""
+    work = Work()
+    px = B * H * W
+    work.add(2 * 2 * px * C + 4 * packed_words, px * (36 * C + 36 * heads + 56 * C),
+             px * 16 * C * C)
+    return work
+
+
 def phase_b8(model, dev, card_line):
-    """Phase 16; returns the B8 entry's numbers and its launches."""
+    """Phase 16; returns the B8 entry's numbers, its work, its launches and
+    its times by stage."""
     from lmnet_tpu_torch.models import structural_reparam
     from lmnet_tpu_torch.ops.natt_flat import (
         fold_natt_weights,
         natt_flat_interior,
         natt_flat_interior_plain,
+        natt_plan,
     )
     from lmnet_tpu_torch.serve import deploy_forward, engine
 
@@ -1617,46 +1779,76 @@ def phase_b8(model, dev, card_line):
               f"{launches} (want 4)")
         check(launches == 4, f"natt_flat launched {launches} times, want 4")
         worst = 0.0
-        ms = {"natt_flat": 0.0, "plain": 0.0, "unfused": 0.0}
+        ms = {"natt_flat": 0.0, "graph": 0.0, "plain": 0.0, "unfused": 0.0, "unfused_graph": 0.0}
         work = Work()
+        by_stage = []
         for (name, emb, fw, (B, H, W, C)), got in zip(stages, outs):
-            for dtype in (torch.bfloat16, torch.float32):
-                e = emb.reshape(B, H, W * C).to(dtype)
-                g = got if dtype == torch.bfloat16 else natt_flat_interior(e, fw, HEADS, C, W)
-                ref = natt_flat_interior_plain(e.float(), fw, HEADS, C, W)
-                err = (g.float() - ref).abs()
-                bound = 1e-4 * (1 + ref.abs().max())
-                if dtype == torch.bfloat16:
-                    bound = bound + 2**-8 * ref.abs()
-                ok = bool((err <= bound).all()) and g.dtype == dtype
-                worst = max(worst, err.max().item())
-                print(f"phase 16: natt_flat vs plain {name} B={B} H={H} W={W} C={C} {_dt(dtype)}: "
-                      f"max_abs_err={err.max().item():.3e} on outputs of max "
-                      f"{ref.abs().max().item():.3e} (tol 1e-4 (1 + max|ref|)"
-                      f"{' + 2^-8 |ref|' if dtype == torch.bfloat16 else ''}) {'ok' if ok else 'FAIL'}")
-                check(ok, f"natt_flat disagrees with plain at {name} {dtype}")
             e = emb.reshape(B, H, W * C)
+            worst = max(worst, check_b8("phase 16", e, fw, HEADS, C, W, got))
+            e32 = e.float()
+            worst = max(worst, check_b8("phase 16", e32, fw, HEADS, C, W,
+                                        natt_flat_interior(e32, fw, HEADS, C, W)))
             unf = engine.natt_interior(deploy, name, emb, HEADS, "flat").reshape(B, H, W * C)
             d = (got.float() - unf.float()).abs().max().item()
-            # emb in, out, the packed weights once; per pixel 8 C^2
-            # multiply-adds (q, k, v, proj, fc1, fc2) counted as tensor-core
-            # work, the NAT's and ~56 C for the two LayerNorms and the GELU
-            # as float32
-            work.add(2 * e.numel() * e.element_size() + 4 * fw["packed"].numel(),
-                     B * H * W * (36 * C + 36 * HEADS + 56 * C), B * H * W * 16 * C * C)
-            t = {"natt_flat": cuda_ms(lambda: natt_flat_interior(e, fw, HEADS, C, W)),
+            w = natt_work(B, H, W, C, HEADS, fw["packed"].numel())
+            work.add(w.nbytes, w.flops, w.tc_flops)
+            fn = lambda: natt_flat_interior(e, fw, HEADS, C, W)  # noqa: E731
+            un = lambda: engine.natt_interior(deploy, name, emb, HEADS, "flat")  # noqa: E731
+            t = {"natt_flat": cuda_ms(fn), "graph": graph_ms(fn),
                  "plain": cuda_ms(lambda: natt_flat_interior_plain(e, fw, HEADS, C, W), iters=5),
-                 "unfused": cuda_ms(lambda: engine.natt_interior(deploy, name, emb, HEADS, "flat"))}
+                 "unfused": cuda_ms(un), "unfused_graph": graph_ms(un)}
             for k in ms:
                 ms[k] += t[k]
-            print(f"phase 16: {name} H={H} W={W} C={C} B={B} bf16: natt_flat {t['natt_flat']:.4f} "
-                  f"ms, plain {t['plain']:.4f} ms, the unfused bf16 interior {t['unfused']:.4f} ms "
-                  f"(max |natt_flat - unfused| {d:.3e}) [{card_line}]")
-    print(f"phase 16: the four stages: natt_flat {ms['natt_flat']:.4f} ms, plain {ms['plain']:.4f} "
-          f"ms, unfused {ms['unfused']:.4f} ms (bound {work.bound()[0]:.4f} ms, "
-          f"{work.bound()[1]}) [{card_line}]")
+            plan = natt_plan(B, H, W, HEADS, C // HEADS, torch.bfloat16)
+            bound, by = w.bound()
+            print(f"phase 16: {name} H={H} W={W} C={C} B={B} bf16 [tile {plan['tile'][0]}x"
+                  f"{plan['tile'][1]}, group {plan['group']}, {plan['smem']} B shared]: "
+                  f"natt_flat {t['natt_flat']:.4f} ms eager, {t['graph']:.4f} ms as a CUDA graph "
+                  f"({w.tc_flops / t['natt_flat'] / 1e9:.2f} TFLOP/s of product work), bound "
+                  f"{bound:.4f} ms ({by}), plain {t['plain']:.4f} ms, the unfused bf16 interior "
+                  f"{t['unfused']:.4f} ms (graph {t['unfused_graph']:.4f}) (max |natt_flat - "
+                  f"unfused| {d:.3e}) [{card_line}]")
+            by_stage.append({"H": H, "W": W, "C": C, "hd": C // HEADS, "tile": plan["tile"],
+                             "group": plan["group"], "ms": t["natt_flat"], "graph_ms": t["graph"],
+                             "plain_ms": t["plain"], "unfused_ms": t["unfused"],
+                             "unfused_graph_ms": t["unfused_graph"], "bound_ms": bound,
+                             "bound_by": by})
+        for i, (B, H, W, heads, hd) in enumerate(B8_SHAPES):
+            C = heads * hd
+            fw = fold_natt_weights(natt_state(900 + i, C, heads, dev), "natt", heads)
+            g = torch.Generator().manual_seed(H * W)
+            for dtype in (torch.bfloat16, torch.float32):
+                e = torch.randn(B, H, W * C, generator=g).to(dev, dtype)
+                worst = max(worst, check_b8("phase 16", e, fw, heads, C, W,
+                                            natt_flat_interior(e, fw, heads, C, W)))
+    print(f"phase 16: the four stages: natt_flat {ms['natt_flat']:.4f} ms eager, "
+          f"{ms['graph']:.4f} ms as CUDA graphs, plain {ms['plain']:.4f} ms, unfused "
+          f"{ms['unfused']:.4f} ms (graphs {ms['unfused_graph']:.4f}) (bound "
+          f"{work.bound()[0]:.4f} ms, {work.bound()[1]}) [{card_line}]")
     return ({"max_abs_err": worst, "ms": ms["natt_flat"], "plain_ms": ms["plain"],
-             "unfused_ms": ms["unfused"]}, work, launches)
+             "unfused_ms": ms["unfused"]}, work, launches, by_stage)
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled entry (a length-prefixed
+    identifier ending in ``_kernel`` or starting ``reduce_``), with its
+    template arguments (``I...EE``) where it has them; else the entry's
+    first 48 characters."""
+    i = 0
+    while i < len(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i:
+            i += 1
+            continue
+        name = mangled[j:j + int(mangled[i:j])]
+        if name.endswith("_kernel") or name.startswith("reduce_"):
+            rest = mangled[j + len(name):]
+            return name + (rest[:rest.index("EE") + 2] if rest.startswith("I") and "EE" in rest
+                           else "")
+        i = j + len(name)
+    return mangled[:48]
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -1668,8 +1860,7 @@ def ptxas_report(log: str) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z][a-z_0-9]*_kernel|reduce_partials)(I\w*?EE)?", m.group(1))
-            name = (k.group(1) + (k.group(2) or "")) if k else m.group(1)[:48]
+            name = _kernel_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -1734,10 +1925,11 @@ def main() -> int:
     print(f"phase 2: {', '.join(KERNELS)} built in parallel from {_build.CSRC} -> "
           f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
-    for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu"):
+    for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu", "rc_stats", "natt_flat"):
         for line in ptxas_report(logs.get(name, "")) or ["(built earlier; no report)"]:
             print(f"phase 2: ptxas {name}.cu {line}")
-    print(f"phase 2: rc_fused's library: {tensor_core_count(_build.library_path('rc_fused'))}")
+    for name in ("rc_fused", "natt_flat"):
+        print(f"phase 2: {name}'s library: {tensor_core_count(_build.library_path(name))}")
 
     worst = phase_kernel_vs_plain(dev)
     model = seeded_model(dev)
@@ -1750,11 +1942,11 @@ def main() -> int:
     kb_ms, pb_ms, worst_bwd_timed, b2_work, b2_stages = phase_train_times(dev, card_line)
     worst_rc = phase_rc_kernels(dev)
     rc_serve_launches, rc_timed, rc_work = phase_rc_serving(model, dev, card_line)
-    rc_train_launches, stats_timed, b6_work = phase_rc_training(dev, card_line)
+    rc_train_launches, stats_timed, b6_work, b6_shapes = phase_rc_training(dev, card_line)
     b3, b3_work, b3_launches = phase_b3(model, dev, card_line)
     b7, b7_work, b7_launches = phase_b7(model, dev, card_line)
     phase_options(model, dev, card_line)
-    b8, b8_work, b8_launches = phase_b8(model, dev, card_line)
+    b8, b8_work, b8_launches, b8_stages = phase_b8(model, dev, card_line)
     del model
 
     def rc_numbers(k, extra):
@@ -1783,11 +1975,12 @@ def main() -> int:
                                 "training": rc_train_launches["rc_dw_gelu"]},
               xla_ms=rc_timed["rc_dw_gelu"][3]),
         entry("rc_stats", "rc_stats.cu", "lmnet_tpu/ops/pallas/rc_train.py:140",
-              rc_train_launches["rc_stats"], rc_numbers("rc_stats", stats_timed), b6_work),
+              rc_train_launches["rc_stats"], rc_numbers("rc_stats", stats_timed), b6_work,
+              xla_ms=stats_timed[3], ms_by_stage=b6_shapes),
         entry("upsample_flat", "upsample_flat.cu", "lmnet_tpu/ops/pallas/upsample_flat.py:148",
               sum(b7_launches.values()), b7, b7_work, launches_by_path=b7_launches),
         entry("natt_flat", "natt_flat.cu", "lmnet_tpu/ops/pallas/natt_flat.py:265",
-              b8_launches, b8, b8_work),
+              b8_launches, b8, b8_work, unfused_ms=b8["unfused_ms"], ms_by_stage=b8_stages),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

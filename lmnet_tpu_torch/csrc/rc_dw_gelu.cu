@@ -64,7 +64,6 @@ constexpr int kPairs = kRows / 2;   // thread rows: a thread computes two output
 constexpr int kCols = 32;           // output tile columns
 constexpr int kHRows = kRows + 4;   // halo rows
 constexpr int kHCols = kCols + 4;   // halo columns
-constexpr int kChunk = 32;          // channels per block, at most
 constexpr size_t kMaxSmem = 232448;
 
 struct Geometry {
@@ -76,17 +75,6 @@ struct Geometry {
   size_t smem;   // dynamic shared memory bytes
   long long workspace;  // float32 partials
 };
-
-// Channels a block takes: all C up to 32; above, the largest of 32, 24, 16
-// and 8 that divides C (C = 48: two chunks of 24, not 32 and a half-idle
-// 16), else 32 with a partial last chunk.
-int chunk_channels(int C) {
-  if (C <= kChunk) return C;
-  for (int ck = kChunk; ck >= 8; ck -= 8) {
-    if (C % ck == 0) return ck;
-  }
-  return kChunk;
-}
 
 // halo and t tile in e's dtype, then the taps and one partial per thread
 // (kPairs x ck) in float32

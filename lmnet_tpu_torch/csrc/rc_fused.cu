@@ -90,12 +90,13 @@
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (lmnet_tpu_torch/ops/_build.py, lmnet_tpu_torch/ops/rc_kernel.py).
 
+#include "mma_bf16.cuh"
 #include "rc_common.cuh"
 
 namespace {
 
 using namespace lmnet_rc;
-using bf16 = __nv_bfloat16;
+using namespace lmnet_tc;
 
 constexpr int kRows = 8;                   // output tile rows (both kernels)
 constexpr size_t kMaxSmem = 232448;        // a block's shared-memory limit on sm_90
@@ -199,40 +200,6 @@ int tc_tile(const Dims& d, int B, int H, int W) {
   const long long blocks16 = (long long)B * ((H + kRows - 1) / kRows) * ((W + 15) / 16);
   if (tc_fits(d, 16) && (blocks16 >= kMinBlocks || !tc_fits(d, 8))) return 16;
   return tc_fits(d, 8) ? 8 : 0;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned ld32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// d += a b: a 16x16 bf16 A fragment, a 16x8 B fragment, float32 d
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc (16 x 8 of M x N) += A B over K = k: lane l's A row pointer (row
-// l % 16, column (l / 16) * 8) and B row pointer (row n = l / 4, column
-// 2 (l % 4)) of [row][k] bf16 arrays in shared memory
-__device__ __forceinline__ void mma_k(float (&acc)[4], const bf16* arow, const bf16* brow,
-                                      int k) {
-  for (int k0 = 0; k0 < k; k0 += 16) {
-    unsigned a[4];
-    ldmatrix_x4(a, arow + k0);
-    mma_bf16(acc, a, ld32(brow + k0), ld32(brow + k0 + 8));
-  }
 }
 
 // ONE: a single chunk (E <= 24) whose y needs at most 3 tiles a warp; y's

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` compiles on first use into
 covers the source bytes and the compiler flags, so an edited source or a
 changed flag builds anew and an unchanged one is loaded as it is. The library
 has a plain C interface; callers set ``argtypes``/``restype`` on what they
-use. Nothing here runs when the module is imported.
+use. Nothing here runs when the module is imported. ``aligned`` is the one
+launch rule every wrapper shares.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmnet_tpu_torch"
@@ -86,3 +89,10 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes (a
+    contiguous view at an offset): the kernels copy their inputs in units
+    of up to 16 bytes, and a misaligned unit would fault on the card."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -28,6 +28,7 @@ import functools
 import torch
 
 from lmnet_tpu_torch.ops import _build
+from lmnet_tpu_torch.ops._build import aligned
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -220,12 +221,6 @@ def kernel_plan(B: int, H: int, W: int, heads: int, hd: int, dtype: torch.dtype,
                 smem=smem, vec_bytes=vb, workspace=workspace)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where its data does not start on 16 bytes (a
-    view at an offset): the kernels move 16-byte vectors."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 @functools.lru_cache(maxsize=None)
 def _plan_args(B, H, W, heads, hd, dtype, kind) -> tuple:
     """The plan's numbers in the order the C entry takes them; raises for a
@@ -253,7 +248,7 @@ def _call(name: str, fn, ptrs, shape, scale, plan, device) -> None:
 def _launch_fwd(q, k, v, rpb, heads: int, C: int, W: int, scale: float) -> torch.Tensor:
     B, H, _ = q.shape
     shape, plan, _ = _plan_args(B, H, W, heads, C // heads, q.dtype, "fwd")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     _call("nat_fwd", _fwd_kernel(), (q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(),
                                      out.data_ptr()), shape, scale, plan, q.device)
@@ -264,7 +259,7 @@ def _launch_fwd(q, k, v, rpb, heads: int, C: int, W: int, scale: float) -> torch
 def _launch_bwd(q, k, v, rpb, g, heads: int, C: int, W: int, scale: float):
     B, H, _ = q.shape
     shape, plan, workspace = _plan_args(B, H, W, heads, C // heads, q.dtype, "bwd")
-    q, k, v, g = _aligned(q), _aligned(k), _aligned(v), _aligned(g)
+    q, k, v, g = aligned(q), aligned(k), aligned(v), aligned(g)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drpb = torch.empty_like(rpb)
     part = torch.empty(workspace, dtype=torch.float32, device=q.device)

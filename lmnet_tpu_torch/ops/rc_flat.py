@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
+from lmnet_tpu_torch.ops._build import aligned
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BN_EPS = 1e-5
@@ -39,6 +40,13 @@ def _vec_bytes(n: int) -> int:
     return min(16, n & -n)
 
 
+def chunk_channels(C: int) -> int:
+    """Channels a block of the depthwise kernels (B5, B6) takes: all C up to
+    32; above, the largest of 32, 24, 16, 8 that divides C, else 32
+    (``csrc/rc_common.cuh::chunk_channels``)."""
+    return C if C <= DW_CHUNK else next((c for c in (32, 24, 16, 8) if C % c == 0), DW_CHUNK)
+
+
 @functools.lru_cache(maxsize=None)
 def dw_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
     """The launch geometry of ``csrc/rc_dw_gelu.cu`` for e (B, H, W*C) of
@@ -54,8 +62,7 @@ def dw_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
         return None
     rows, cols = DW_TILE
     esize = 4 if dtype == torch.float32 else 2
-    # all C up to 32; above, the largest of 32, 24, 16, 8 dividing C, else 32
-    ck = C if C <= DW_CHUNK else next((c for c in (32, 24, 16, 8) if C % c == 0), DW_CHUNK)
+    ck = chunk_channels(C)
     nchunk = -(-C // ck)
     ntiles = -(-H // rows) * -(-W // cols)
     tiles = ((rows + 4) * (cols + 4) + rows * cols) * ck * esize
@@ -120,6 +127,7 @@ def dw_gelu_flat(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tens
     kernel5x5 = kernel5x5.float().contiguous()
     bias = bias.float().contiguous()
     check_cuda("dw_gelu_flat", e_flat, kernel5x5, bias)
+    e_flat = aligned(e_flat)
     plan = dw_plan(B, H, W, C, e_flat.dtype)
     if plan is None:
         raise ValueError(f"rc_dw_gelu does not take B={B} H={H} W={W} C={C}")

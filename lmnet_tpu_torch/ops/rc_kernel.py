@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
+from lmnet_tpu_torch.ops._build import aligned
 from lmnet_tpu_torch.ops.rc_flat import (
     BN_EPS,
     MAX_SMEM,
@@ -209,7 +210,8 @@ def fused_reparam_conv(x: torch.Tensor, w: dict) -> torch.Tensor:
     only its ``packed`` buffer, which must lie on x's device).
 
     On CUDA tensors it runs the two kernel phases (x is made contiguous
-    first, a copy where it is a permuted view) and adds one to
+    first, a copy where it is a permuted view or does not start on 16
+    bytes) and adds one to
     ``fused_reparam_conv.launches`` per call; on CPU tensors it is
     ``fused_reparam_conv_plain``.
     """
@@ -217,7 +219,7 @@ def fused_reparam_conv(x: torch.Tensor, w: dict) -> torch.Tensor:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return fused_reparam_conv_plain(x, w)
-    x = x.contiguous()
+    x = aligned(x.contiguous())
     sums, geo, plan = _phase1(x, w)
     B, H, W = x.shape[:3]
     Cout = w["wp"].shape[0]

@@ -24,29 +24,96 @@ k5 (C, 1, 5, 5), k3 (C, 1, 3, 3), kv (C, 1, 3, 1), kh (C, 1, 1, 3).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
-from lmnet_tpu_torch.ops.rc_flat import _DTYPE_CODE, check_cuda, dw_gelu_flat
+from lmnet_tpu_torch.ops._build import aligned
+from lmnet_tpu_torch.ops.rc_flat import (
+    _DTYPE_CODE,
+    MAX_SMEM,
+    _vec_bytes,
+    check_cuda,
+    chunk_channels,
+    dw_gelu_flat,
+)
 from lmnet_tpu_torch.ops.reparam import fuse_reparam_branches
 
 BRANCHES = ("large", "square", "ver", "hor")  # the reference's sum order
 _SHAPES = ((5, 5), (3, 3), (3, 1), (1, 3))
+# csrc/rc_stats.cu's constants: a block's output tile (rows, columns); the
+# taps a channel keeps in shared memory (40, padded to an odd stride)
+STATS_TILE = (16, 32)
+_TAPS = 41
+
+
+@functools.lru_cache(maxsize=None)
+def stats_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
+    """The launch geometry of ``csrc/rc_stats.cu`` for e (B, H, W*C) of
+    ``dtype``, or None for a shape it does not take: ``tile`` (rows,
+    columns), ``chunk`` channels a block (``rc_flat.chunk_channels``),
+    ``nchunk`` chunks, ``vec`` the copy unit in bytes (the widest of 16, 8,
+    4, 2 that divides C's channel run), ``smem`` dynamic shared-memory bytes
+    (the 20 x 36 halo in e's dtype; 41 taps a channel and 8 partials a
+    thread, which computes two rows, in float32), ``ntiles`` tiles per image,
+    ``workspace`` float32 per-tile partials (8 C a tile). Cached: the caller
+    must not change the dict."""
+    if not (0 < B <= 65535 and H > 0 and W > 0 and C > 0) or dtype not in _DTYPE_CODE:
+        return None
+    rows, cols = STATS_TILE
+    esize = 4 if dtype == torch.float32 else 2
+    ck = chunk_channels(C)
+    nchunk = -(-C // ck)
+    ntiles = -(-H // rows) * -(-W // cols)
+    halo = (rows + 4) * (cols + 4) * ck * esize
+    smem = -(-halo // 16) * 16 + (_TAPS + 8 * (rows // 2)) * ck * 4
+    if B * ntiles > 0x7FFFFFFF or nchunk > 65535 or smem > MAX_SMEM:
+        return None
+    return dict(tile=STATS_TILE, chunk=ck, nchunk=nchunk, vec=_vec_bytes(C * esize), smem=smem,
+                ntiles=ntiles, workspace=B * ntiles * 8 * C)
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_args(B: int, H: int, W: int, C: int, dtype: torch.dtype) -> tuple:
+    """(the plan's numbers in the order the C entry takes them, from the
+    dtype code to the workspace; the outputs' 8 C floats); raises for a
+    shape the kernel does not take."""
+    p = stats_plan(B, H, W, C, dtype)
+    if p is None:
+        raise ValueError(f"rc_stats does not take B={B} H={H} W={W} C={C}")
+    return (_DTYPE_CODE[dtype], *p["tile"], p["chunk"], p["vec"], p["smem"],
+            p["workspace"]), 8 * C
+
+
+def kernel_stats_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
+    """``csrc/rc_stats.cu``'s own plan for this shape, in ``stats_plan``'s
+    form, or None where it refuses the shape (builds the kernel; card
+    tests hold the two equal)."""
+    if dtype not in _DTYPE_CODE:
+        return None
+    fn = _build.load("rc_stats").lmnet_rc_stats_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 8)()
+    if fn(B, H, W, C, _DTYPE_CODE[dtype], ctypes.addressof(out)) != 0:
+        return None
+    rows, cols, ck, nchunk, vec, smem, ntiles, workspace = out
+    return dict(tile=(rows, cols), chunk=ck, nchunk=nchunk, vec=vec, smem=smem, ntiles=ntiles,
+                workspace=workspace)
 
 
 def _kernel():
     lib = _build.load("rc_stats")
-    fn, ws = lib.lmnet_rc_stats, lib.lmnet_rc_stats_workspace
+    fn = lib.lmnet_rc_stats
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, i, i, i, i, p]
+        ll = ctypes.c_longlong
+        fn.argtypes = [p] * 7 + [i] * 9 + [ll, ll, p]
         fn.restype = ctypes.c_int
-        ws.argtypes = [i, i, i, i]
-        ws.restype = ctypes.c_longlong
-    return fn, ws
+    return fn
 
 
 def _check_shapes(e_flat, kernels, C: int) -> tuple[int, int, int]:
@@ -74,7 +141,8 @@ def rc_branch_stats(e_flat, k5, k3, kv, kh, C: int) -> torch.Tensor:
     branch outputs never written out. JAX returns (8, W*C) flat
     accumulators; ``_fold_stats`` there folds them over W.
 
-    On CUDA tensors it launches ``csrc/rc_stats.cu`` (one more in
+    On CUDA tensors it launches ``csrc/rc_stats.cu`` with the launch
+    geometry of ``stats_plan``, which the kernel checks (one more in
     ``rc_branch_stats.launches``; two calls give bitwise-equal results). On
     CPU tensors it is ``rc_branch_stats_plain``.
     """
@@ -84,17 +152,18 @@ def rc_branch_stats(e_flat, k5, k3, kv, kh, C: int) -> torch.Tensor:
         return rc_branch_stats_plain(e_flat, *kernels, C)
     kernels = [k.float().contiguous() for k in kernels]
     check_cuda("rc_branch_stats", e_flat, *kernels)
-    fn, ws = _kernel()
-    n_part = ws(B, H, W, C)
-    if n_part < 0:
-        raise ValueError(f"rc_stats does not take B={B} H={H} W={W} C={C}")
-    f32 = dict(dtype=torch.float32, device=e_flat.device)
-    out = torch.empty(4, 2, C, **f32)
-    part = torch.empty(n_part, **f32)
-    with torch.cuda.device(e_flat.device):
-        err = fn(e_flat.data_ptr(), *(k.data_ptr() for k in kernels), out.data_ptr(),
-                 part.data_ptr(), B, H, W, C, _DTYPE_CODE[e_flat.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+    e_flat = aligned(e_flat)
+    plan, nout = _stats_args(B, H, W, C, e_flat.dtype)
+    dev = e_flat.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return rc_branch_stats(e_flat, *kernels, C)
+    # out (4, 2, C) and the partials in one allocation
+    buf = torch.empty(nout + plan[-1], dtype=torch.float32, device=dev)
+    out = buf[:nout].view(4, 2, C)
+    err = _kernel()(e_flat.data_ptr(), *(k.data_ptr() for k in kernels), out.data_ptr(),
+                    buf.data_ptr() + 4 * nout, B, H, W, C, *plan,
+                    torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"rc_stats launch failed: CUDA error {err}")
     rc_branch_stats.launches += 1

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from lmnet_tpu_torch.ops import _build
+from lmnet_tpu_torch.ops._build import aligned
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,14 +94,14 @@ class _Upsample2xFlat(torch.autograd.Function):
 def upsample2x_flat(x: torch.Tensor) -> torch.Tensor:
     """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)`` on
     NHWC (B, H, W, C) ``x`` -> (B, 2H, 2W, C) in x's dtype, float32 math;
-    differentiable. On a CUDA tensor a permuted view is copied to a
-    contiguous one first; each launch of the kernel adds one to
-    ``upsample2x_flat.launches``."""
+    differentiable. On a CUDA tensor a permuted view, or one whose data
+    does not start on 16 bytes, is copied to a contiguous one first; each
+    launch of the kernel adds one to ``upsample2x_flat.launches``."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return upsample2x_flat_plain(x)
-    return _Upsample2xFlat.apply(x.contiguous())
+    return _Upsample2xFlat.apply(aligned(x.contiguous()))
 
 
 upsample2x_flat.launches = 0

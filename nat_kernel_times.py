@@ -6,14 +6,20 @@ calls, as chip_smoke.py times them), replayed as a CUDA graph (device time
 alone, no host work), and per CUDA kernel under torch.profiler. Beside each
 stage: its bytes (B1: q, k, v in and out once; B2: q, k, v, g in and dq, dk,
 dv out once), their bound at 3.35 TB/s, the rate reached and the launch
-plan's variant. Random inputs from a seed; each kernel is held against its
+plan's variant. Then B8 (natt_flat, the fused NATT interior) at the four
+NATT stages of the same forward (emb (16, H, W*C), the stages' C and
+head_dim), eagerly and as a CUDA graph, beside its plain version and the
+unfused bf16 interior that ``deploy_forward`` runs
+(``serve.engine.natt_interior``), with its bound (``chip_smoke.natt_work``).
+Random inputs and weights from a seed; each kernel is held against its
 plain version first.
 
-Run from the repository root: ``python3 nat_kernel_times.py``. With
-``--tree DIR`` it times the kernels of the ``lmnet_tpu_torch`` package
-under DIR instead (an unpacked earlier commit, for a comparison in one
-call). It exits 1 without a card. The last line is one JSON object with the
-per-stage times.
+Run from the repository root: ``python3 nat_kernel_times.py``;
+``--kernels B8`` times only the kernels named (comma-separated; default
+B1,B2,B8). With ``--tree DIR`` it times the kernels of the
+``lmnet_tpu_torch`` package under DIR instead (an unpacked earlier commit,
+for a comparison in one call). It exits 1 without a card. The last line is
+one JSON object with the per-stage times.
 """
 
 from __future__ import annotations
@@ -40,12 +46,61 @@ def _variant(kind, B, H, W, C) -> str:
     return p["variant"] if p else "refused"
 
 
+def time_b8(dev, card, total) -> list[dict]:
+    """B8 at the four NATT stages; adds its sums to ``total``."""
+    from lmnet_tpu_torch.ops import natt_flat as nf
+    from lmnet_tpu_torch.serve import engine
+
+    rows = []
+    for i, (H, W, C) in enumerate(cs.STAGES_256):
+        B, heads = cs.BATCH, cs.HEADS
+        sd = cs.natt_state(600 + i, C, heads, dev)
+        fw = nf.fold_natt_weights(sd, "natt", heads)
+        emb = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(650 + i))
+        emb = emb.to(dev, torch.bfloat16)
+        e = emb.reshape(B, H, W * C)
+        with torch.inference_mode():
+            got = nf.natt_flat_interior(e, fw, heads, C, W)
+            if hasattr(cs, "check_b8") and hasattr(nf, "natt_plan"):
+                cs.check_b8("nat_kernel_times", e, fw, heads, C, W, got)
+            else:  # an earlier tree: its own bound, against the float32 plain version
+                ref = nf.natt_flat_interior_plain(e.float(), fw, heads, C, W)
+                err = (got.float() - ref).abs()
+                cs.check(bool((err <= 1e-4 * (1 + ref.abs().max()) + 2**-8 * ref.abs()).all()),
+                         f"natt_flat disagrees with plain at H={H}")
+            fn = lambda: nf.natt_flat_interior(e, fw, heads, C, W)  # noqa: E731
+            unf = lambda: engine.natt_interior(sd, "natt", emb, heads, "flat")  # noqa: E731
+            ms = {"ms": cs.cuda_ms(fn), "graph_ms": cs.graph_ms(fn),
+                  "plain_ms": cs.cuda_ms(lambda: nf.natt_flat_interior_plain(e, fw, heads, C, W),
+                                         iters=5),
+                  "unfused_ms": cs.cuda_ms(unf), "unfused_graph_ms": cs.graph_ms(unf)}
+            us = device_us(fn)
+        work = cs.natt_work(B, H, W, C, heads, fw["packed"].numel())
+        bound, by = work.bound()
+        row = {"H": H, "W": W, "C": C, "hd": C // heads, "natt_flat": {
+            **ms, "bound_ms": bound, "bound_by": by, "bound_terms_ms": work.terms(),
+            "tc_tflop_s": work.tc_flops / ms["ms"] / 1e9}}
+        rows.append(row)
+        for kk, v in (*ms.items(), ("bound_ms", bound)):
+            total[f"natt_flat {kk}"] = total.get(f"natt_flat {kk}", 0.0) + v
+        print(f"natt_flat H={H} W={W} C={C} hd={C // heads} B={B} bf16: "
+              + ", ".join(f"{kk} {v:.4f}" for kk, v in ms.items())
+              + f"; bound {bound:.4f} ms ({by}; terms "
+              + ", ".join(f"{kk} {v:.4f}" for kk, v in work.terms().items())
+              + f"), {work.tc_flops / ms['ms'] / 1e9:.2f} TFLOP/s of product work eager [{card}]")
+        print("   natt_flat device us a call by kernel: "
+              + "; ".join(f"{kk} {v:.1f}" for kk, v in list(us.items())[:4]))
+    return rows
+
+
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--tree", help="time the lmnet_tpu_torch package under this directory")
-    tree = args.parse_args().tree
-    if tree:
-        sys.path.insert(0, tree)
+    args.add_argument("--kernels", default="B1,B2,B8", help="comma-separated: B1, B2, B8")
+    opts = args.parse_args()
+    if opts.tree:
+        sys.path.insert(0, opts.tree)
+    kernels = set(opts.kernels.split(","))
     if not torch.cuda.is_available():
         print("nat_kernel_times: no CUDA device", file=sys.stderr)
         return 1
@@ -55,7 +110,7 @@ def main() -> int:
     dev = torch.device("cuda")
     B = cs.BATCH
     stages, total = [], {}
-    for i, (H, W, C) in enumerate(cs.STAGES_256):
+    for i, (H, W, C) in enumerate(cs.STAGES_256 if kernels & {"B1", "B2"} else []):
         q, k, v, rpb = cs.nat_inputs(B, H, W, C, torch.bfloat16, 700 + i, dev)
         g = torch.randn(B, H, W * C, generator=torch.Generator().manual_seed(800 + i))
         g = g.to(dev, torch.bfloat16)
@@ -88,6 +143,8 @@ def main() -> int:
             print(f"   {name} device us a call by kernel: "
                   + "; ".join(f"{kk} {v:.1f}" for kk, v in list(us.items())[:4]))
         stages.append(row)
+    if "B8" in kernels:
+        stages += time_b8(dev, card, total)
     print("the four 256^2 stages, ms: "
           + ", ".join(f"{kk} {v:.4f}" for kk, v in total.items()) + f" [{card}]")
     import lmnet_tpu_torch

@@ -9,8 +9,13 @@ numpy seed (``test_torch_serve.jax_variables``):
   * ``deploy_forward`` with each option against JAX's with the same option,
     and the options' own checks (exclusive flags, the composed kernel's size).
 
+Also on the CPU: the bf16 weight pack, the plain version that rounds where
+the bf16 kernel does against JAX's kernel on bf16 emb and against the
+float32 plain version, and ``natt_plan`` at every shape the paths give B8.
+
 On a CUDA card (marker ``gpu``; skipped without one): B8 against its plain
-version, its launch count and its input checks.
+versions (bf16 two ways), its launch count, its input checks, and
+``natt_plan`` against the kernel's own plan.
 ``python -m pytest --noconftest -m gpu tests/test_torch_natt.py`` runs them
 there; the JAX comparisons import JAX inside the test.
 """
@@ -22,10 +27,16 @@ import pytest
 import torch
 
 from lmnet_tpu_torch.ops.natt_flat import (
+    MAX_SMEM,
+    TC_THREADS,
     fold_natt_weights,
+    kernel_natt_plan,
     natt_flat_interior,
     natt_flat_interior_plain,
+    natt_plan,
     pack_natt_weights,
+    pack_natt_weights_bf16,
+    tc_dims,
 )
 
 HEADS = 2  # TINY's
@@ -245,6 +256,20 @@ def test_serving_evaluate_natt_int8_matches_jax(deploy_pair):
 # --------------------------------------------------------------------------
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_natt", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_SMOKE = _chip_smoke()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -268,23 +293,19 @@ def _random_fw(seed, C, heads, device):
               ln1_w=n(C, s=0.1, base=1.0), ln1_b=n(C, s=0.1), ln2_w=n(C, s=0.1, base=1.0),
               ln2_b=n(C, s=0.1), rpb=n(heads, 5, 5, s=0.3))
     fw["packed"] = pack_natt_weights(fw)
+    fw["packed_bf16"] = pack_natt_weights_bf16(fw)
     return fw
-
-
-# (B, H, W, heads, head_dim): LM-Net's four NATT widths (12 heads), a 3x3
-# map, head_dim 3, maps that end mid-tile
-B8_SHAPES = [(2, 32, 32, 12, 1), (2, 16, 24, 12, 2), (1, 16, 16, 12, 4), (2, 8, 8, 12, 8),
-             (1, 3, 3, 2, 2), (1, 11, 7, 4, 3), (1, 19, 21, 2, 16)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W,heads,hd", B8_SHAPES)
+@pytest.mark.parametrize("B,H,W,heads,hd", _SMOKE.B8_SHAPES)
 def test_b8_kernel_matches_plain_on_card(cuda, dtype, B, H, W, heads, hd):
     """B8 against ``natt_flat_interior_plain`` on the same (bf16-rounded)
-    input in float32: f32 within 1e-4 (1 + max|ref|) (sums of up to 2C
-    products and two LayerNorms in another order); bf16 within one rounding
-    of the stored value more, 2^-8 |ref|."""
+    input, by ``chip_smoke.check_b8`` (phase 16's check): f32 within 1e-4
+    (1 + max|ref|); bf16 within 2^-7 max|ref| of the plain version rounding
+    at the kernel's points and within 2x that version's distance + 2^-8
+    max|ref| of the float32 one."""
     C = heads * hd
     fw = _random_fw(C + H, C, heads, cuda)
     emb = torch.randn(B, H, W * C, generator=torch.Generator().manual_seed(H * W)).to(cuda, dtype)
@@ -293,12 +314,26 @@ def test_b8_kernel_matches_plain_on_card(cuda, dtype, B, H, W, heads, hd):
     torch.cuda.synchronize()
     assert natt_flat_interior.launches == before + 1
     assert got.dtype == dtype and got.shape == emb.shape
-    want = natt_flat_interior_plain(emb.float(), fw, heads, C, W)
-    bound = 1e-4 * (1 + want.abs().max())
-    if dtype == torch.bfloat16:
-        bound = bound + 2**-8 * want.abs()
-    err = (got.float() - want).abs()
-    assert bool((err <= bound).all()), err.max().item()
+    _SMOKE.check_b8("test", emb, fw, heads, C, W, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b8_kernel_takes_an_offset_view(cuda, dtype):
+    """emb as a contiguous view whose data starts 2 or 4 bytes off 16 (the
+    kernel copies emb in 16-byte units): the same output as on an aligned
+    copy, one launch."""
+    B, H, W, heads, C = 2, 16, 24, 12, 24
+    fw = _random_fw(5, C, heads, cuda)
+    emb = torch.randn(B, H, W * C, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    view = torch.empty(emb.numel() + 1, dtype=dtype, device=cuda)[1:].view(emb.shape)
+    view.copy_(emb)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    want = natt_flat_interior(emb, fw, heads, C, W)
+    before = natt_flat_interior.launches
+    got = natt_flat_interior(view, fw, heads, C, W)
+    torch.cuda.synchronize()
+    assert natt_flat_interior.launches == before + 1 and torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -313,3 +348,131 @@ def test_b8_kernel_rejects_what_it_does_not_take(cuda):
         natt_flat_interior(emb, _random_fw(0, 4, 2, cuda), 2, 8, 6)
     with pytest.raises(ValueError):  # packed weights on another device
         natt_flat_interior(emb, _random_fw(0, 8, 2, torch.device("cpu")), 2, 8, 6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_python_natt_plan_is_the_kernels_plan(cuda, dtype):
+    """natt_plan and csrc/natt_flat.cu's plan are one function: equal at
+    every shape of PLAN_SHAPES, and both refuse the same shapes."""
+    for B, H, W, heads, hd in [*PLAN_SHAPES, (1, 2, 8, 2, 2), (0, 8, 8, 2, 2), (1, 8, 8, 0, 2)]:
+        assert kernel_natt_plan(B, H, W, heads, hd, dtype) == natt_plan(
+            B, H, W, heads, hd, dtype), (B, H, W, heads, hd)
+
+
+# --------------------------------------------------------------------------
+# the bf16 kernel's weights, rounding points and plans (CPU)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C,heads", [(12, 12), (24, 12), (96, 12), (4, 2), (12, 4), (32, 2)])
+def test_pack_natt_weights_bf16_lays_out_the_rounded_weights(C, heads):
+    """Each matrix unpacked from the bf16 buffer is the float32 weight
+    rounded to bf16, in (out, in) layout, with zero padding to (nc or n2,
+    kc + 8 or k2 + 8); the buffer holds nothing else."""
+    fw = _random_fw(C, C, heads, "cpu")
+    d = tc_dims(C, heads, (1, 1), C)
+    buf, off = fw["packed_bf16"], 0
+    assert buf.dtype == torch.bfloat16
+    for name, n, k in [("wq", d["nc"], d["sa"]), ("wk", d["nc"], d["sa"]),
+                       ("wv", d["nc"], d["sa"]), ("wp", d["nc"], d["sa"]),
+                       ("w1", d["n2"], d["sa"]), ("w2", d["nc"], d["s4"])]:
+        m = buf[off:off + n * k].reshape(n, k)
+        w = fw[name]
+        assert torch.equal(m[:w.shape[0], :w.shape[1]], w.to(torch.bfloat16)), name
+        assert not m[w.shape[0]:].any() and not m[:, w.shape[1]:].any(), name
+        off += n * k
+    assert off == buf.numel()
+
+
+def test_b8_plain_bf16_rounding_matches_jax_kernel(deploy_pair):
+    """The plain version at the bf16 kernel's rounding points (bf16 emb)
+    against JAX ``natt_flat_interior(bf16 emb, interpret=True)`` at TINY
+    natt4 and natt3, 8x8, B=2. JAX's kernel computes in float32 from the
+    bf16 emb and rounds only its output; this version also rounds the
+    weights and the four A operands to bf16 (2^-9 relative each), through
+    sums of up to 2C products: measured 0.5-0.8 % of max|ref|, bound 3e-2
+    max|ref|."""
+    import jax.numpy as jnp
+    from lmnet_tpu.ops.pallas.natt_flat import fold_natt_weights as j_fold
+    from lmnet_tpu.ops.pallas.natt_flat import natt_flat_interior as j_natt
+
+    jd, sd, _ = deploy_pair
+    for name, C in (("natt4", 4), ("natt3", 8)):
+        H = W = 8
+        emb = torch.from_numpy((np.random.RandomState(3).randn(2, H, W * C) * 0.5)
+                               .astype(np.float32)).bfloat16()
+        want = np.asarray(j_natt(jnp.asarray(emb.float().numpy()).astype(jnp.bfloat16),
+                                 j_fold(jd["params"][name], C, W, HEADS), HEADS, C, W,
+                                 interpret=True).astype(jnp.float32))
+        got = natt_flat_interior(emb, fold_natt_weights(sd, name, HEADS), HEADS, C, W)
+        assert got.dtype == torch.bfloat16 and got.shape == emb.shape
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= 3e-2 * np.abs(want).max(), (name, err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,H,W,heads,hd", [(1, 8, 8, 12, 1), (1, 6, 7, 12, 2), (1, 5, 5, 12, 4),
+                                             (1, 4, 4, 12, 8), (1, 5, 6, 4, 3)])
+def test_b8_plain_bf16_rounding_against_float32(B, H, W, heads, hd):
+    """The plain version that rounds at the bf16 kernel's points against
+    the float32 plain version on the same bf16 emb: it differs (it rounds),
+    by at most 2^-5 max|ref| (bf16 weights and A operands, 2^-9 relative
+    each, through sums of up to 2C = 192 products and two LayerNorms). That
+    distance is what the card's bound scales by."""
+    C = heads * hd
+    fw = _random_fw(C + H, C, heads, "cpu")
+    emb = torch.randn(B, H, W * C, generator=torch.Generator().manual_seed(H * W)).bfloat16()
+    r = natt_flat_interior_plain(emb, fw, heads, C, W)
+    f = natt_flat_interior_plain(emb.float(), fw, heads, C, W)
+    assert r.dtype == torch.bfloat16 and f.dtype == torch.float32
+    m = f.abs().max().item()
+    dist = (r.float() - f).abs().max().item()
+    assert 0 < dist <= 2**-5 * m, (dist, m)
+
+
+# every shape the paths give B8: the four NATT stages at 256^2 and 288^2
+# (B=16, 12 heads), B8_SHAPES, and odd maps (5x5, 28^2, a W=7 strip, 3x3,
+# head_dim 3 and 16)
+PLAN_SHAPES = sorted({(16, h, w, 12, c // 12) for h, w, c in _SMOKE.STAGES_256 + _SMOKE.STAGES_288}
+                     | {tuple(s) for s in _SMOKE.B8_SHAPES}
+                     | {(2, 5, 5, 12, 4), (2, 28, 28, 12, 2), (2, 32, 7, 12, 4), (1, 3, 3, 12, 1),
+                        (1, 9, 9, 4, 3), (1, 12, 10, 6, 16)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,heads,hd", PLAN_SHAPES)
+def test_natt_plan_fits(dtype, B, H, W, heads, hd):
+    """B8's plan: shared memory within the block limit; bf16: the group
+    divides C into whole heads (a multiple of 8 unless it is C), at most
+    TC_THREADS heads, the halo indexable in 10 bits, emb's copy unit the
+    widest that divides C's bf16 run, the regions of ``tc_dims``; at the
+    four 256^2 stages two blocks fit an SM and the tile holds at least 64
+    pixels."""
+    C = heads * hd
+    plan = natt_plan(B, H, W, heads, hd, dtype)
+    assert plan is not None and 0 < plan["smem"] <= MAX_SMEM
+    tr, tc = plan["tile"]
+    if dtype == torch.float32:
+        assert plan["group"] == C and plan["vec"] == 0
+        assert plan["smem"] == (4 * (tr + 2) * (tc + 2) + tr * tc) * C * 4
+        return
+    g = plan["group"]
+    assert C % g == 0 and g % hd == 0 and (g == C or g % 8 == 0) and g // hd <= TC_THREADS
+    assert (tr + 2) * (tc + 2) <= 1023
+    vec = plan["vec"]
+    assert vec in (2, 4, 8, 16) and (2 * C) % vec == 0 and (vec == 16 or (2 * C) % (2 * vec))
+    d = tc_dims(C, heads, plan["tile"], g)
+    assert plan["smem"] == d["smem"] == sum(-(-v // 16) * 16 for v in d["regions"].values())
+    if (H, W) in ((256, 256), (128, 128), (64, 64), (32, 32)):
+        assert plan["smem"] <= 113 * 1024 and tr * tc >= 64
+
+
+def test_natt_plan_picks_the_stage_tiles_and_refuses():
+    """The tiles the kernel's note names, and the shapes it refuses."""
+    got = {c: natt_plan(16, h, w, 12, c // 12, torch.bfloat16)
+           for h, w, c in [(256, 256, 12), (128, 128, 24), (64, 64, 48), (32, 32, 96)]}
+    assert [(p["tile"], p["group"]) for p in got.values()] == [
+        ((16, 16), 12), ((16, 16), 8), ((8, 16), 24), ((8, 8), 24)]
+    assert natt_plan(1, 2, 8, 2, 2, torch.bfloat16) is None  # H < 3
+    assert natt_plan(1, 8, 8, 2, 2, torch.float16) is None
+    assert natt_plan(0, 8, 8, 2, 2, torch.float32) is None

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from lmnet_tpu_torch.ops import rc_train
+from lmnet_tpu_torch.ops import _build, rc_train
 from lmnet_tpu_torch.ops.rc_flat import (
     dw_gelu_flat,
     dw_gelu_flat_plain,
@@ -496,6 +496,21 @@ def test_serving_evaluate_auto_resolves_once(monkeypatch, deploy_pair):
     assert (loss, metrics) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+def test_aligned_copies_only_a_view_off_16_bytes(dtype, offset):
+    """``_build.aligned``, which every kernel wrapper applies to what it
+    copies in 16-byte units: a view whose data starts on 16 bytes comes back
+    as it is; any other becomes an equal contiguous copy that does."""
+    base = torch.arange(64, dtype=dtype)
+    view = base[offset:offset + 32].view(4, 8)
+    got = _build.aligned(view)
+    if view.data_ptr() % 16 == 0:
+        assert got is view
+    else:
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, view)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -694,3 +709,35 @@ def test_rc_kernels_reject_what_they_do_not_take(cuda):
     w = _rc_weights(0, 4, 8, 4, cuda)
     with pytest.raises(ValueError):  # x's channels do not fit we
         fused_reparam_conv(torch.zeros(1, 8, 8, 5, device=cuda), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["B4", "B5", "B6"])
+def test_rc_kernels_take_an_offset_view(cuda, kernel, dtype):
+    """The activation as a contiguous view whose data starts 2 or 4 bytes
+    off 16 (the kernels copy it in units of up to 16 bytes): the same
+    result as on an aligned copy, one launch."""
+    B, H, W, C = 2, 16, 16, 24
+    e, ks, _, _ = _branch_inputs(7, B, H, W, C)
+    e = torch.from_numpy(e).to(cuda, dtype)
+    ks = [torch.from_numpy(k).to(cuda) for k in ks]
+    w = _rc_weights(3, C, 48, C, cuda)
+    run, counted = {
+        "B4": (lambda a: fused_reparam_conv(a.view(B, H, W, C), w), fused_reparam_conv),
+        "B5": (lambda a: dw_gelu_flat(a, ks[0], torch.full((C,), 0.1, device=cuda), C),
+               dw_gelu_flat),
+        "B6": (lambda a: rc_branch_stats(a, *ks, C), rc_branch_stats),
+    }[kernel]
+    view = torch.empty(e.numel() + 1, dtype=dtype, device=cuda)[1:].view(e.shape)
+    view.copy_(e)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    want = run(e)
+    before = counted.launches
+    got = run(view)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    if kernel == "B5":  # (t, sums)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)

@@ -1,4 +1,5 @@
-"""B4's bf16 numerics, its packed weights, and the launch plans of B4 and B5.
+"""B4's bf16 numerics, its packed weights, and the launch plans of B4, B5
+and B6.
 
 On the CPU, all at small sizes:
   * ``pack_rc_weights``: each bf16 matrix unpacked from the buffer equals the
@@ -8,9 +9,13 @@ On the CPU, all at small sizes:
   * the plain version with the bf16 kernel's rounding points against JAX's
     ``fused_reparam_conv(bf16 x, interpret=True)``, and against the float32
     plain version;
-  * ``rc_plan`` and ``dw_plan`` at every shape of ``RC_SHAPES`` and
-    ``DW_SHAPES`` (here and in chip_smoke.py): shared memory within the
-    block limit, tiles that cover the map, the workspace and packed sizes.
+  * ``rc_plan``, ``dw_plan`` and ``stats_plan`` at every shape of
+    ``RC_SHAPES`` and ``DW_SHAPES`` (here and in chip_smoke.py) and a few
+    odd maps: shared memory within the block limit, tiles that cover the
+    map, the workspace and packed sizes.
+
+On a CUDA card (marker ``gpu``): ``stats_plan`` equals the plan that
+``csrc/rc_stats.cu`` computes for itself at every shape above.
 """
 
 import importlib.util
@@ -21,6 +26,7 @@ import pytest
 import torch
 
 from lmnet_tpu_torch.ops.rc_flat import dw_plan
+from lmnet_tpu_torch.ops.rc_train import STATS_TILE, kernel_stats_plan, stats_plan
 from lmnet_tpu_torch.ops.rc_kernel import (
     MAX_PAIRS,
     MAX_SMEM,
@@ -46,6 +52,10 @@ def _chip_smoke():
 _SMOKE = _chip_smoke()
 ALL_RC = sorted(set(RC_SHAPES) | set(_SMOKE.RC_SHAPES))
 ALL_DW = sorted(set(DW_SHAPES) | set(_SMOKE.DW_SHAPES))
+# B6 also at its training-forward block shapes and odd maps: 3x3, 1x1, a
+# 17-row strip, an odd channel count, a chunked C that 8 does not divide
+ALL_STATS = sorted(set(ALL_DW) | {(16, h, h, e) for h, e, _ in _SMOKE.B6_BLOCKS}
+                   | {(1, 3, 3, 12), (2, 1, 1, 8), (1, 17, 33, 24), (2, 9, 9, 7), (1, 6, 5, 300)})
 
 
 def _unpack(buf, name, Cin, E, Cout):
@@ -182,3 +192,52 @@ def test_dw_plan_fits_and_covers(dtype, B, H, W, C):
     vec = plan["vec"]
     assert vec in (2, 4, 8, 16) and (C * esize) % vec == 0 and (plan["chunk"] * esize) % vec == 0
     assert vec == 16 or (C * esize) % (2 * vec) != 0  # the widest that divides
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C", ALL_STATS)
+def test_stats_plan_fits_and_covers(dtype, B, H, W, C):
+    """B6's plan: the 16x32 tile covers the map, the chunks cover C, the
+    copy unit is the widest that divides C's channel run (and the chunk's),
+    shared memory (halo in e's dtype, 41 taps a channel, 8 partials a
+    thread of 8 x chunk) within the block limit, and 8 C partials a tile."""
+    plan = stats_plan(B, H, W, C, dtype)
+    assert plan is not None
+    rows, cols = plan["tile"]
+    assert (rows, cols) == STATS_TILE == (16, 32)
+    ty, tx = -(-H // rows), -(-W // cols)
+    assert plan["ntiles"] == ty * tx and plan["workspace"] == B * ty * tx * 8 * C
+    ck = plan["chunk"]
+    assert ck * plan["nchunk"] >= C > ck * (plan["nchunk"] - 1) and ck <= 32
+    esize = 4 if dtype == torch.float32 else 2
+    vec = plan["vec"]
+    assert vec in (2, 4, 8, 16) and (C * esize) % vec == 0 and (ck * esize) % vec == 0
+    assert vec == 16 or (C * esize) % (2 * vec) != 0
+    halo = -(-20 * 36 * ck * esize // 16) * 16
+    assert plan["smem"] == halo + (41 + 8 * 8) * ck * 4 <= MAX_SMEM
+    if (B, H, W, C) in ALL_DW:  # the same tiles and chunks as B5
+        d = dw_plan(B, H, W, C, dtype)
+        assert (d["chunk"], d["vec"], d["ntiles"]) == (ck, vec, plan["ntiles"])
+
+
+def test_stats_plan_refuses_what_the_kernel_does_not_take():
+    assert stats_plan(1, 8, 8, 8, torch.float16) is None
+    assert stats_plan(0, 8, 8, 8, torch.bfloat16) is None
+    assert stats_plan(1, 0, 8, 8, torch.bfloat16) is None
+    assert stats_plan(70000, 8, 8, 8, torch.bfloat16) is None
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_python_stats_plan_is_the_kernels_plan(cuda, dtype):
+    """stats_plan and csrc/rc_stats.cu's geometry are one function: equal at
+    every shape above, and both refuse the same shapes."""
+    for shape in [*ALL_STATS, (0, 8, 8, 8), (1, 0, 8, 8), (70000, 8, 8, 8)]:
+        assert kernel_stats_plan(*shape, dtype) == stats_plan(*shape, dtype), shape

@@ -164,6 +164,23 @@ def test_b7_kernel_matches_plain_on_card(cuda, dtype, B, H, W, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b7_kernel_takes_an_offset_view(cuda, dtype):
+    """x as a contiguous view whose data starts 2 or 4 bytes off 16 (the
+    kernel loads x in 16-byte units): the same output as on an aligned
+    copy, one launch."""
+    x = torch.randn(2, 16, 16, 24, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    view = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    want = upsample2x_flat(x)
+    before = upsample2x_flat.launches
+    got = upsample2x_flat(view)
+    torch.cuda.synchronize()
+    assert upsample2x_flat.launches == before + 1 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_b7_backward_on_card_is_the_adjoint(cuda):
     """One forward and backward: one kernel launch; the gradient equals
     autograd of the plain version (float32, rtol 1e-5 / atol 1e-6), and a
