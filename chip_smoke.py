@@ -9,9 +9,10 @@ Phases, each printing a line, any failure raising (exit code != 0):
      rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
      natt_flat.cu) with nvcc for sm_90a, one process per source, all
      started together; print ptxas's registers and spills of nat_fwd's,
-     nat_bwd's, rc_fused's, rc_dw_gelu's, rc_stats's and natt_flat's
-     kernels and the number of HMMA/HGMMA (tensor-core) instructions in
-     rc_fused's and natt_flat's libraries (cuobjdump, where it is found);
+     nat_bwd's, rc_fused's, rc_dw_gelu's, rc_stats's, natt_flat's,
+     nat_kernel's and upsample_flat's kernels and the number of HMMA/HGMMA
+     (tensor-core) instructions in rc_fused's and natt_flat's libraries
+     (cuobjdump, where it is found);
   3. the forward kernel against its plain PyTorch version, in float32
      (TF32 off) and bfloat16, at the four NAT stage shapes of the 256^2
      model (B=2) and of the 288^2 training epoch (B=16), at H=W=28 with
@@ -85,7 +86,12 @@ Phases, each printing a line, any failure raising (exit code != 0):
      the same statistics (stats_stock);
  13. B3 (nat_kernel, nat_backend='pallas') against the plain NAT and against
      B1 on the same inputs, float32 and bfloat16, at phase 3's shapes and
-     the timed 256^2 B=16 stage inputs (B3, B1 and plain times per stage);
+     the timed 256^2 B=16 stage inputs, each with its launch plan's variant
+     ('vec' with a rank-2 or rank-3 tensor map, or 'generic'), tile and
+     persistent blocks, and against the plain NAT alone at shapes of other
+     head counts (B3_VARIANT_SHAPES: float32 rank-2 maps); B3 and B1 times
+     per stage, eager and as a CUDA
+     graph, and the plain version's;
      serving_evaluate with nat_backend='pallas' (launches counted, logits
      against 'flat'); train_step with LMNet(nat_backend='pallas'): float32
      at 64^2, B=2 (the loss and every gradient against 'flat') and bf16 at
@@ -93,10 +99,14 @@ Phases, each printing a line, any failure raising (exit code != 0):
      8, B3 launches counted), and its time beside 'flat';
  14. B7 (upsample_flat) with the upsample backend set to 'flat': against its
      plain version at the 7 upsample shapes of the 256^2 model (B=16 and
-     B=2) and a few odd shapes, float32 and bfloat16; its backward against
-     autograd of the plain version; serving_evaluate and a 'train' epoch
-     with its launches counted; its time summed over the 7 calls of a served
-     batch beside the plain version and F.interpolate (the library call);
+     B=2) and a few odd shapes, float32 and bfloat16, each with its launch
+     plan's variant ('tma', or 'generic' where a pixel's bytes are not a
+     multiple of 16) and tile; its backward against autograd of the plain
+     version; serving_evaluate and a 'train' epoch with its launches
+     counted; each of the 7 calls of a served batch timed eagerly, as a
+     CUDA graph and in a graph of 10 calls (its device time), with the
+     host's microseconds a call (eager less device), beside the plain
+     version and F.interpolate (the library call), and their sums;
  15. the serving options natt_int8, ln_fold and skip_compose at full width,
      256^2 B=16 bf16: logits against the default's, and deploy_forward
      times in turns;
@@ -111,8 +121,10 @@ the inputs it was timed on: the largest of its bytes (each input read once,
 each output written once) at 3.35 TB/s, its float32 operations at 67
 TFLOP/s, and its operations that the tensor cores can take (B4's three 1x1
 products, B8's six C-mixing products) at 989 TFLOP/s (bf16, dense). B1's,
-B2's, B6's and B8's entries also carry ``ms_by_stage``: phase 5's, 9's,
-12's and 16's per-stage (B6: per block shape) eager and CUDA-graph times;
+B2's, B3's, B6's and B8's entries also carry ``ms_by_stage``: phase 5's,
+9's, 13's, 12's and 16's per-stage (B6: per block shape) eager and
+CUDA-graph times; B7's carries ``ms_by_call``, phase 14's per-call times,
+and ``host_us``;
 B4's, B5's and B6's carry ``xla_ms``, the stock bf16 composition's time.
 
 The script's wall seconds come on a line before the kernels line, which
@@ -146,6 +158,11 @@ HEADS = 12
 CHECK_SHAPES = ([(2, h, w, c) for h, w, c in STAGES_256]
                 + [(BATCH, h, w, c) for h, w, c in STAGES_288]
                 + [(2, 28, 28, 36), (2, 3, 3, 24), (2, 16, 4, 48)])
+# (B, H, W, heads, head_dim) at which phase 13 also holds B3 against the
+# plain NAT, shapes of other head counts than the model's: float32 C = 6
+# and 3 x 2 (a rank-2 map, 8 bytes a thread; generic in bf16, where no
+# thread group divides C = 6), bf16 C = 20 (rank 2, 4 mod 8)
+B3_VARIANT_SHAPES = [(1, 8, 8, 6, 1), (2, 9, 10, 6, 1), (1, 7, 12, 3, 2), (2, 11, 16, 5, 4)]
 # (B, H, W, Cin, E, Cout) at which phase 10 holds B4 against its plain
 # version: the five distinct ReparamConv shapes of the 256^2 model at B=2,
 # then a 5x5 map, a 28^2 map with E=20 and a W=7 strip
@@ -229,9 +246,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Milliseconds per replay of ``fn`` captured as a CUDA graph: the
-    device time of its launches, with no host work between them."""
+def graph_ms(fn, iters: int = 20, calls: int = 1) -> float:
+    """Milliseconds per call of ``fn`` captured ``calls`` times in one CUDA
+    graph, per replay over ``calls``: the device time of its launches, with
+    no host work between them. A call of a few microseconds needs several
+    calls a graph, or the replay's own host cost is what is measured."""
     fn()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
@@ -241,8 +260,9 @@ def graph_ms(fn, iters: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        fn()
-    return cuda_ms(g.replay, iters=iters)
+        for _ in range(calls):
+            fn()
+    return cuda_ms(g.replay, iters=iters) / calls
 
 
 def stage_line(label, name, B, H, W, C, nbytes, ms, g_ms, plan, card_line) -> dict:
@@ -1403,10 +1423,67 @@ def check_b3(label, got, q, k, v, rpb, B, H, W, C) -> float:
     b1 = nat_flat(q.reshape(flat), k.reshape(flat), v.reshape(flat), rpb, HEADS, C, W).float()
     d = (got.reshape(flat).float() - b1).abs()
     ok = bool((d <= (1e-5 if q.dtype == torch.float32 else 2**-7 * b1.abs() + 1e-4)).all())
-    print(f"{label}: nat_kernel vs nat_fwd B={B} H={H} W={W} C={C} {_dt(q.dtype)}: "
-          f"max_abs_diff={d.max().item():.3e} {'ok' if ok else 'FAIL'}")
+    print(f"{label}: nat_kernel vs nat_fwd B={B} H={H} W={W} C={C} {_dt(q.dtype)} "
+          f"[{b3_variant(B, H, W, C, q.dtype)}]: max_abs_diff={d.max().item():.3e} "
+          f"{'ok' if ok else 'FAIL'}")
     check(ok, f"nat_kernel disagrees with nat_fwd at {(B, H, W, C, q.dtype)}")
     return err
+
+
+def check_b3_variants(dev) -> float:
+    """Hold B3 against the plain NAT at B3_VARIANT_SHAPES, float32 and bf16
+    (check_fwd's bounds), each with its plan's variant; return the worst
+    float32 error."""
+    from lmnet_tpu_torch.ops.nat import neighborhood_attention
+    from lmnet_tpu_torch.ops.nat_kernel import b3_plan, neighborhood_attention_pallas
+
+    worst = 0.0
+    for i, (B, H, W, heads, hd) in enumerate(B3_VARIANT_SHAPES):
+        g = torch.Generator(device="cpu").manual_seed(1350 + i)
+        q, k, v = (torch.randn(B, H, W, heads * hd, generator=g) for _ in range(3))
+        rpb = (torch.randn(heads, 5, 5, generator=g) * 0.3).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dev, dtype) for t in (q, k, v))
+            got = neighborhood_attention_pallas(qd, kd, vd, rpb).float()
+            ref = neighborhood_attention(qd.float(), kd.float(), vd.float(), rpb, 3)
+            err = (got - ref).abs()
+            f32 = dtype == torch.float32
+            ok = bool((err <= (1e-5 if f32 else 2**-8 * ref.abs() + 1e-4)).all())
+            p = b3_plan(B, H, W, heads, hd, dtype)
+            rank = f" rank {p['rank']}" if p["variant"] == "vec" else ""
+            print(f"phase 13: nat_kernel vs plain B={B} H={H} W={W} heads={heads} hd={hd} "
+                  f"{_dt(dtype)} [{p['variant']}{rank}]: max_abs_err={err.max().item():.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"nat_kernel disagrees with plain at {(B, H, W, heads, hd, dtype)}")
+            worst = max(worst, err.max().item()) if f32 else worst
+    return worst
+
+
+def b3_variant(B, H, W, C, dtype) -> str:
+    """B3's launch plan for this call in a few words: variant, map rank,
+    tile, heads a tile, persistent blocks over tiles ('n/a' for a package
+    without the plan, an earlier commit's)."""
+    from lmnet_tpu_torch.ops import nat_kernel
+
+    if not hasattr(nat_kernel, "b3_plan"):
+        return "n/a"
+    p = nat_kernel.b3_plan(B, H, W, HEADS, C // HEADS, dtype)
+    rank = f" rank {p['rank']}" if p["variant"] == "vec" else ""
+    return (f"{p['variant']}{rank}, tile {p['tile'][0]}x{p['tile'][1]}, "
+            f"{p['heads_per_block']} heads, {p['blocks']} blocks / {p['tiles']} tiles")
+
+
+def up_variant(x) -> str:
+    """B7's launch plan for x in a few words: variant, tile, blocks ('n/a'
+    for a package without the plan)."""
+    from lmnet_tpu_torch.ops import upsample_flat
+
+    if not hasattr(upsample_flat, "upsample_plan"):
+        return "n/a"
+    p = upsample_flat.upsample_plan(*x.shape, x.dtype)
+    gx, gy, gz = p["grid"]
+    copies = f", {p['copies']} TMA copies a tile" if p["variant"] == "tma" else ""
+    return f"{p['variant']}, tile {p['tile'][0]}x{p['tile'][1]}, {gx * gy * gz} blocks{copies}"
 
 
 def _served_batch(dev):
@@ -1455,8 +1532,9 @@ def phase_b3(model, dev, card_line):
             q, k, v, rpb = nat_inputs(B, H, W, C, dtype, 1300 + i, dev)
             got = neighborhood_attention_pallas(*(t.reshape(B, H, W, C) for t in (q, k, v)), rpb)
             worst = max(worst, check_b3("phase 13", got, q, k, v, rpb, B, H, W, C))
-    ms = {"nat_kernel": 0.0, "nat_fwd": 0.0, "plain": 0.0}
-    work = Work()
+    worst = max(worst, check_b3_variants(dev))
+    ms = {"nat_kernel": 0.0, "graph": 0.0, "nat_fwd": 0.0, "nat_fwd_graph": 0.0, "plain": 0.0}
+    work, stages = Work(), []
     with torch.inference_mode():
         for i, (H, W, C) in enumerate(STAGES_256):
             q, k, v, rpb = nat_inputs(BATCH, H, W, C, torch.bfloat16, 1400 + i, dev)
@@ -1464,18 +1542,27 @@ def phase_b3(model, dev, card_line):
             got = neighborhood_attention_pallas(q4, k4, v4, rpb)
             worst = max(worst, check_b3("phase 13", got, q, k, v, rpb, BATCH, H, W, C))
             work.add(*nat_fwd_work(q, C))
-            t = {"nat_kernel": cuda_ms(lambda: neighborhood_attention_pallas(q4, k4, v4, rpb)),
-                 "nat_fwd": cuda_ms(lambda: nat_flat(q, k, v, rpb, HEADS, C, W)),
+            b3 = lambda: neighborhood_attention_pallas(q4, k4, v4, rpb)  # noqa: E731
+            b1 = lambda: nat_flat(q, k, v, rpb, HEADS, C, W)  # noqa: E731
+            t = {"nat_kernel": cuda_ms(b3), "graph": graph_ms(b3), "nat_fwd": cuda_ms(b1),
+                 "nat_fwd_graph": graph_ms(b1),
                  "plain": cuda_ms(lambda: neighborhood_attention_pallas_plain(q4, k4, v4, rpb),
                                   iters=5)}
             for key in ms:
                 ms[key] += t[key]
-            print(f"phase 13: nat stage H={H} W={W} C={C} B={BATCH} bf16: nat_kernel "
-                  f"{t['nat_kernel']:.4f} ms, nat_fwd {t['nat_fwd']:.4f} ms, plain "
-                  f"{t['plain']:.4f} ms [{card_line}]")
-    print(f"phase 13: the four stages: nat_kernel {ms['nat_kernel']:.4f} ms, nat_fwd "
-          f"{ms['nat_fwd']:.4f} ms, plain {ms['plain']:.4f} ms (bound {work.bound()[0]:.4f} ms, "
-          f"{work.bound()[1]}) [{card_line}]")
+            variant = b3_variant(BATCH, H, W, C, torch.bfloat16)
+            stages.append({"H": H, "W": W, "C": C, "variant": variant, "ms": t["nat_kernel"],
+                           "graph_ms": t["graph"], "nat_fwd_ms": t["nat_fwd"],
+                           "nat_fwd_graph_ms": t["nat_fwd_graph"],
+                           "bound_ms": nat_fwd_work(q, C)[0] / HBM_RATE * 1e3})
+            print(f"phase 13: nat stage H={H} W={W} C={C} B={BATCH} bf16 [{variant}]: nat_kernel "
+                  f"{t['nat_kernel']:.4f} ms eager, {t['graph']:.4f} as a CUDA graph; nat_fwd "
+                  f"{t['nat_fwd']:.4f} / {t['nat_fwd_graph']:.4f} ms; plain {t['plain']:.4f} ms "
+                  f"[{card_line}]")
+    print(f"phase 13: the four stages: nat_kernel {ms['nat_kernel']:.4f} ms eager, "
+          f"{ms['graph']:.4f} as CUDA graphs; nat_fwd {ms['nat_fwd']:.4f} / "
+          f"{ms['nat_fwd_graph']:.4f} ms; plain {ms['plain']:.4f} ms (bound "
+          f"{work.bound()[0]:.4f} ms, {work.bound()[1]}) [{card_line}]")
 
     # serving with nat_backend='pallas'
     n_images = 32
@@ -1556,7 +1643,9 @@ def phase_b3(model, dev, card_line):
           + "; ".join(f"nat {nb} {' / '.join(f'{t:.3f}' for t in ts)} ms" for nb, ts in times.items())
           + f" [{card_line}]")
     return ({"max_abs_err": worst, "ms": ms["nat_kernel"], "plain_ms": ms["plain"],
-             "nat_fwd_ms": ms["nat_fwd"]}, work, {"serving": serve, "training": train})
+             "graph_ms": ms["graph"], "nat_fwd_ms": ms["nat_fwd"],
+             "nat_fwd_graph_ms": ms["nat_fwd_graph"], "ms_by_stage": stages}, work,
+            {"serving": serve, "training": train})
 
 
 # (B, H, W, C) of the 2x upsamples of one 256^2 forward (up1..up4 and the
@@ -1578,7 +1667,7 @@ def check_up(label, got, x) -> float:
     err = (got.float() - ref).abs()
     bound = 1e-6 * (1 + ref.abs()) if x.dtype == torch.float32 else 2**-8 * ref.abs() + 1e-6
     ok = bool((err <= bound).all()) and got.dtype == x.dtype and got.shape == ref.shape
-    print(f"{label}: upsample_flat vs plain {tuple(x.shape)} {_dt(x.dtype)}: "
+    print(f"{label}: upsample_flat vs plain {tuple(x.shape)} {_dt(x.dtype)} [{up_variant(x)}]: "
           f"max_abs_err={err.max().item():.3e} {'ok' if ok else 'FAIL'}")
     check(ok, f"upsample_flat disagrees with plain at {tuple(x.shape)} {x.dtype}")
     return err.max().item()
@@ -1672,21 +1761,36 @@ def phase_b7(model, dev, card_line):
     _logits_close(f"phase 14: deploy_forward bf16 {IMG}^2 B={BATCH} upsample flat vs einsum",
                   lu, le, bound=0.05 * max(le.abs().max().item(), 1.0))
     check(len(calls) == 7, f"captured {len(calls)} upsample inputs, want 7")
-    ms = plain_ms = lib_ms = 0.0
-    work = Work()
+    total = {"ms": 0.0, "graph_ms": 0.0, "graph10_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    work, by_call = Work(), []
     with torch.inference_mode():
         for (x,) in calls:
             worst = max(worst, check_up("phase 14 served", upsample2x_flat(x), x))
             # x in, the 4x larger output out; ~6 operations an output element
             work.add(5 * x.numel() * x.element_size(), 24 * x.numel())
-            ms += cuda_ms(lambda: upsample2x_flat(x))
-            plain_ms += cuda_ms(lambda: upsample2x_flat_plain(x))
-            lib_ms += cuda_ms(lambda: F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
-                                                    mode="bilinear", align_corners=True))
+            fn = lambda: upsample2x_flat(x)  # noqa: E731
+            t = {"ms": cuda_ms(fn), "graph_ms": graph_ms(fn), "graph10_ms": graph_ms(fn, calls=10),
+                 "plain_ms": cuda_ms(lambda: upsample2x_flat_plain(x)),
+                 "library_ms": cuda_ms(lambda: F.interpolate(
+                     x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear", align_corners=True))}
+            for key in total:
+                total[key] += t[key]
+            # the host's share of an eager call: eager less the device time
+            # (a graph of 10 calls, whose replay's host cost is spread)
+            host_us = (t["ms"] - t["graph10_ms"]) * 1e3
+            by_call.append({"shape": list(x.shape), "variant": up_variant(x), "host_us": host_us,
+                            "bound_ms": 5 * x.numel() * x.element_size() / HBM_RATE * 1e3, **t})
+            print(f"phase 14:   upsample {tuple(x.shape)} bf16 [{up_variant(x)}]: eager "
+                  f"{t['ms']:.4f} ms, CUDA graph {t['graph_ms']:.4f} ms (10 calls a graph: "
+                  f"{t['graph10_ms']:.4f} ms a call), host {host_us:.1f} us a call; plain "
+                  f"{t['plain_ms']:.4f} ms, F.interpolate {t['library_ms']:.4f} ms [{card_line}]")
+    host = sum(c["host_us"] for c in by_call)
     print(f"phase 14: the 7 upsamples of a served batch ({', '.join(str(tuple(c[0].shape)) for c in calls)}"
-          f", bf16): upsample_flat {ms:.4f} ms, plain {plain_ms:.4f} ms, F.interpolate "
-          f"{lib_ms:.4f} ms (bound {work.bound()[0]:.4f} ms, {work.bound()[1]}) [{card_line}]")
-    return ({"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms}, work,
+          f", bf16): upsample_flat {total['ms']:.4f} ms eager, {total['graph_ms']:.4f} as CUDA "
+          f"graphs ({total['graph10_ms']:.4f} in graphs of 10 calls), host {host:.1f} us in all; "
+          f"plain {total['plain_ms']:.4f} ms, F.interpolate {total['library_ms']:.4f} ms (bound "
+          f"{work.bound()[0]:.4f} ms, {work.bound()[1]}) [{card_line}]")
+    return ({"max_abs_err": worst, **total, "host_us": host, "ms_by_call": by_call}, work,
             {"serving": serve, "training": train})
 
 
@@ -1925,7 +2029,8 @@ def main() -> int:
     print(f"phase 2: {', '.join(KERNELS)} built in parallel from {_build.CSRC} -> "
           f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
-    for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu", "rc_stats", "natt_flat"):
+    for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu", "rc_stats", "natt_flat",
+                 "nat_kernel", "upsample_flat"):
         for line in ptxas_report(logs.get(name, "")) or ["(built earlier; no report)"]:
             print(f"phase 2: ptxas {name}.cu {line}")
     for name in ("rc_fused", "natt_flat"):
@@ -1964,7 +2069,9 @@ def main() -> int:
               {"max_abs_err": max(worst_bwd, worst_bwd_timed), "ms": kb_ms, "plain_ms": pb_ms},
               b2_work, ms_by_stage=b2_stages),
         entry("nat_kernel", "nat_kernel.cu", "lmnet_tpu/ops/pallas/nat_kernel.py:231",
-              sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches),
+              sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches,
+              graph_ms=b3["graph_ms"], nat_fwd_ms=b3["nat_fwd_ms"],
+              nat_fwd_graph_ms=b3["nat_fwd_graph_ms"], ms_by_stage=b3["ms_by_stage"]),
         entry("rc_fused", "rc_fused.cu", "lmnet_tpu/ops/pallas/rc_kernel.py:145",
               rc_serve_launches["rc_fused"], rc_numbers("rc_fused", rc_timed["rc_fused"]),
               rc_work["rc_fused"], xla_ms=rc_timed["rc_fused"][3]),
@@ -1978,7 +2085,9 @@ def main() -> int:
               rc_train_launches["rc_stats"], rc_numbers("rc_stats", stats_timed), b6_work,
               xla_ms=stats_timed[3], ms_by_stage=b6_shapes),
         entry("upsample_flat", "upsample_flat.cu", "lmnet_tpu/ops/pallas/upsample_flat.py:148",
-              sum(b7_launches.values()), b7, b7_work, launches_by_path=b7_launches),
+              sum(b7_launches.values()), b7, b7_work, launches_by_path=b7_launches,
+              graph_ms=b7["graph_ms"], graph10_ms=b7["graph10_ms"], host_us=b7["host_us"],
+              ms_by_call=b7["ms_by_call"]),
         entry("natt_flat", "natt_flat.cu", "lmnet_tpu/ops/pallas/natt_flat.py:265",
               b8_launches, b8, b8_work, unfused_ms=b8["unfused_ms"], ms_by_stage=b8_stages),
     ]}))

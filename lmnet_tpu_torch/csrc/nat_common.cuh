@@ -1,6 +1,8 @@
 // Shared by the two NAT kernels of the default path, nat_fwd.cu (B1) and
 // nat_bwd.cu (B2): their launch plan, the clamped window, and the copy of a
-// halo of pixels into shared memory in 16-byte (or narrower) cp.async units.
+// halo of pixels into shared memory in 16-byte (or narrower) cp.async units;
+// and by B1 and nat_kernel.cu (B3): the forward's compute of one query
+// pixel (window_vec, window_generic).
 //
 // The plan is computed twice: here, and in Python by
 // lmnet_tpu_torch/ops/nat_flat.py::nat_plan, which the CPU tests check at
@@ -99,6 +101,18 @@ inline int pixels_per_pass(int tpp) {
   return ppb;
 }
 
+// A thread's channels in B1's (and B3's) vectorised variant: 16 or else 8
+// bytes of at most 4 whole heads that divide C; a float32 head of 8 takes 32
+// bytes; 0 if none.
+inline int group_channels(int hd, long long C, int es) {
+  if (hd == 8 && es == 4) return 8;
+  for (int gb = 16; gb >= 8; gb /= 2) {
+    const int gc = gb / es;
+    if (gc >= hd && gc <= kMaxHeadsPerThread * hd && C % gc == 0) return gc;
+  }
+  return 0;
+}
+
 // The plan for a call of B1 (kind kFwd) or B2 (kBwd) on (B, H, W, heads x hd)
 // in elements of es bytes; false for a shape the kernels do not take.
 inline bool make_plan(int kind, int B, int H, int W, int heads, int hd, int es, Plan* p) {
@@ -109,17 +123,7 @@ inline bool make_plan(int kind, int B, int H, int W, int heads, int hd, int es, 
   int per = 1, rows, cols;
   bool vec = pow2;
   if (kind == kFwd) {
-    // a thread's channels: 16 or else 8 bytes of at most 4 whole heads
-    // dividing C; a float32 head of 8 takes 32 bytes
-    int g = 0;
-    if (hd == 8 && es == 4) {
-      g = 8;
-    } else {
-      for (int gb = 16; gb >= 8 && g == 0; gb /= 2) {
-        const int gc = gb / es;
-        if (gc >= hd && gc <= kMaxHeadsPerThread * hd && C % gc == 0) g = gc;
-      }
-    }
+    const int g = group_channels(hd, C, es);
     vec = pow2 && g > 0;
     per = vec ? g / hd : 1;
     rows = kFwdRows;
@@ -322,6 +326,106 @@ __device__ __forceinline__ void store_f32(float* p, const float (&in)[N]) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) p[i] = in[i];
+  }
+}
+
+// One query pixel of the vectorised variant (B1 and B3): NH heads of
+// head_dim HD, G = HD * NH channels read at qp as one vector; their 3x3
+// windows from a staged halo (kw, vw: window slot 0's pixel at the thread's
+// channels; hw pixels a halo row, ck elements a pixel); the bias times
+// log2 e from `bias` (slot 0's entry of the thread's heads; one entry is
+// bstride floats on). The 9 logits of each head stay in registers, the
+// softmax runs in base 2 (q scaled by scale2 = scale * log2 e), and out is
+// stored as one vector at op.
+template <typename T, int HD, int NH>
+__device__ __forceinline__ void window_vec(const T* qp, const T* kw, const T* vw, int hw, int ck,
+                                           const float* bias, int bstride, float scale2, T* op) {
+  constexpr int G = HD * NH;
+  float qf[G];
+  load_f32<G>(qp, qf);
+#pragma unroll
+  for (int d = 0; d < G; ++d) qf[d] *= scale2;
+  float s[NH][9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    float kf[G], bv[NH];
+    load_f32<G>(kw + ((i / 3) * hw + i % 3) * ck, kf);
+    load_f32<NH>(bias + ((i / 3) * 5 + i % 3) * bstride, bv);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float dot = bv[h];
+#pragma unroll
+      for (int d = 0; d < HD; ++d) dot = fmaf(qf[h * HD + d], kf[h * HD + d], dot);
+      s[h][i] = dot;
+    }
+  }
+  float inv[NH];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    float m = s[h][0];
+#pragma unroll
+    for (int i = 1; i < 9; ++i) m = fmaxf(m, s[h][i]);
+    float den = 0.f;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      s[h][i] = ex2(s[h][i] - m);
+      den += s[h][i];
+    }
+    inv[h] = __fdividef(1.f, den);
+  }
+  float acc[G];
+#pragma unroll
+  for (int d = 0; d < G; ++d) acc[d] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    float vf[G];
+    load_f32<G>(vw + ((i / 3) * hw + i % 3) * ck, vf);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[h * HD + d] = fmaf(s[h][i], vf[h * HD + d], acc[h * HD + d]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc[h * HD + d] *= inv[h];
+  }
+  store_f32<G>(op, acc);
+}
+
+// One (query pixel, head) of the generic variant (B1 and B3), head_dim hd
+// at run time: q at qp, its window's slot 0 at kp and vp (the next window
+// row is rs elements on, the next column ps), the bias times log2 e as in
+// window_vec; out at op. I is the index type of the strides: int64_t for
+// device memory, int for a staged halo.
+template <typename T, typename I>
+__device__ __forceinline__ void window_generic(const T* qp, const T* kp, const T* vp, I rs, I ps,
+                                               int hd, const float* bias, int bstride,
+                                               float scale2, T* op) {
+  float s[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const T* kq = kp + (i / 3) * rs + (i % 3) * ps;
+    float dot = 0.f;
+    for (int d = 0; d < hd; ++d) dot = fmaf(to_f32(qp[d]), to_f32(kq[d]), dot);
+    s[i] = fmaf(dot, scale2, bias[((i / 3) * 5 + i % 3) * bstride]);
+  }
+  float m = s[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) m = fmaxf(m, s[i]);
+  float den = 0.f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    s[i] = ex2(s[i] - m);
+    den += s[i];
+  }
+  const float inv = __fdividef(1.f, den);
+  for (int d = 0; d < hd; ++d) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) acc = fmaf(s[i], to_f32(vp[(i / 3) * rs + (i % 3) * ps + d]), acc);
+    op[d] = from_f32<T>(acc * inv);
   }
 }
 

@@ -121,91 +121,14 @@ nat_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int64_t pix = (img + (int64_t)row * W + col) * C;
     if constexpr (HD > 0) {
       const int64_t qo = pix + (int64_t)h0 * HD + cg * G;
-      const T* kw = ks + ((r0 - hr0) * hw + (c0 - hc0)) * ck + cg * G;
-      const T* vw = vs + ((r0 - hr0) * hw + (c0 - hc0)) * ck + cg * G;
-      const float* bias = rp + base * nh + cg * NH;  // slot 0's entry of the thread's heads
-      float qf[G];
-      load_f32<G>(q + qo, qf);
-#pragma unroll
-      for (int d = 0; d < G; ++d) qf[d] *= scale2;
-      float s[NH][9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        float kf[G], bv[NH];
-        load_f32<G>(kw + ((i / 3) * hw + i % 3) * ck, kf);
-        load_f32<NH>(bias + ((i / 3) * 5 + i % 3) * nh, bv);
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          float dot = bv[h];
-#pragma unroll
-          for (int d = 0; d < HD; ++d) dot = fmaf(qf[h * HD + d], kf[h * HD + d], dot);
-          s[h][i] = dot;
-        }
-      }
-      float inv[NH];
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        float m = s[h][0];
-#pragma unroll
-        for (int i = 1; i < 9; ++i) m = fmaxf(m, s[h][i]);
-        float den = 0.f;
-#pragma unroll
-        for (int i = 0; i < 9; ++i) {
-          s[h][i] = ex2(s[h][i] - m);
-          den += s[h][i];
-        }
-        inv[h] = __fdividef(1.f, den);
-      }
-      float acc[G];
-#pragma unroll
-      for (int d = 0; d < G; ++d) acc[d] = 0.f;
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        float vf[G];
-        load_f32<G>(vw + ((i / 3) * hw + i % 3) * ck, vf);
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-#pragma unroll
-          for (int d = 0; d < HD; ++d) acc[h * HD + d] = fmaf(s[h][i], vf[h * HD + d], acc[h * HD + d]);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[h * HD + d] *= inv[h];
-      }
-      store_f32<G>(out + qo, acc);
+      const int wo = ((r0 - hr0) * hw + (c0 - hc0)) * ck + cg * G;  // window slot 0 in the halo
+      window_vec<T, HD, NH>(q + qo, ks + wo, vs + wo, hw, ck, rp + base * nh + cg * NH, nh,
+                            scale2, out + qo);
     } else {
-      const int head = h0 + cg;
-      const int64_t qo = pix + (int64_t)head * hd;
-      const float* bias = rp + base * nh + cg;
-      float s[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        const int64_t ko = (img + (int64_t)(r0 + i / 3) * W + c0 + i % 3) * C + (int64_t)head * hd;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(to_f32(q[qo + d]), to_f32(k[ko + d]), dot);
-        s[i] = fmaf(dot, scale2, bias[((i / 3) * 5 + i % 3) * nh]);
-      }
-      float m = s[0];
-#pragma unroll
-      for (int i = 1; i < 9; ++i) m = fmaxf(m, s[i]);
-      float den = 0.f;
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        s[i] = ex2(s[i] - m);
-        den += s[i];
-      }
-      const float inv = __fdividef(1.f, den);
-      for (int d = 0; d < hd; ++d) {
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < 9; ++i) {
-          const int64_t vo = (img + (int64_t)(r0 + i / 3) * W + c0 + i % 3) * C + (int64_t)head * hd;
-          acc = fmaf(s[i], to_f32(v[vo + d]), acc);
-        }
-        out[qo + d] = from_f32<T>(acc * inv);
-      }
+      const int64_t qo = pix + (int64_t)(h0 + cg) * hd;
+      const int64_t wo = (img + (int64_t)r0 * W + c0) * C + (int64_t)(h0 + cg) * hd;
+      window_generic<T, int64_t>(q + qo, k + wo, v + wo, (int64_t)W * C, (int64_t)C, hd,
+                                 rp + base * nh + cg, nh, scale2, out + qo);
     }
   }
 }

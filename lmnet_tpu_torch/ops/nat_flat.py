@@ -71,6 +71,17 @@ def _smem(kind: str, vec: bool, rows: int, cols: int, nh: int, hd: int, es: int,
     return max(stats + rp + halos, _r16(25 * threads * 4))
 
 
+def _group_channels(hd: int, C: int, es: int) -> int:
+    """A thread's channels in B1's (and B3's) vectorised variant
+    (``nat_common.cuh::group_channels``): 16 or else 8 bytes of at most 4
+    whole heads that divide C; a float32 head of 8 takes 32 bytes; 0 if
+    none."""
+    if hd == 8 and es == 4:
+        return 8
+    return next((gb // es for gb in (16, 8)
+                 if hd <= gb // es <= MAX_HEADS_PER_THREAD * hd and C % (gb // es) == 0), 0)
+
+
 def _pixels_per_pass(tpp: int) -> int:
     ppb = 128
     while ppb > 1 and tpp * ppb > MAX_THREADS:
@@ -104,13 +115,7 @@ def nat_plan(B: int, H: int, W: int, heads: int, hd: int, dtype: torch.dtype, ki
     vec = hd in (1, 2, 4, 8)
     per = 1
     if kind == "fwd":
-        # a thread's channels: 16 or else 8 bytes of at most 4 whole heads
-        # that divide C; a float32 head of 8 takes 32 bytes
-        if hd == 8 and es == 4:
-            g = 8
-        else:
-            g = next((gb // es for gb in (16, 8)
-                      if hd <= gb // es <= MAX_HEADS_PER_THREAD * hd and C % (gb // es) == 0), 0)
+        g = _group_channels(hd, C, es)
         vec = vec and g > 0
         per = g // hd if vec else 1
         rows, cols = FWD_TILE

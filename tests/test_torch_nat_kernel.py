@@ -207,3 +207,44 @@ def test_b3_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # fewer than 3 rows
         neighborhood_attention_pallas(q[:, :2].contiguous(), k[:, :2].contiguous(),
                                       v[:, :2].contiguous(), rpb)
+
+
+# (B, H, W, heads, head_dim) at which each B3 variant runs: 'vec' with the
+# 2-D map (bf16 C = 12: the model's stage, ragged tiles; float32 C = 6, 8
+# bytes a thread), with the 3-D map and more tiles than blocks (the ring
+# turns), with head chunks (C = 512 and 256, ragged); 'generic' at head_dim
+# 3 and 16, in bf16 at a C = 12 row of 312 bytes that no map strides, and
+# in bf16 at C = 6, which no thread group divides
+VARIANT_SHAPES = [(16, 256, 256, 12, 1), (2, 33, 34, 12, 1), (16, 128, 128, 12, 2),
+                  (1, 9, 11, 64, 8), (1, 12, 9, 128, 2), (2, 7, 13, 12, 1), (1, 28, 28, 12, 3),
+                  (1, 5, 7, 1, 16), (1, 8, 8, 6, 1), (1, 7, 12, 3, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,heads,hd", VARIANT_SHAPES)
+def test_b3_each_variant_matches_plain_on_card(cuda, dtype, B, H, W, heads, hd):
+    """The plan's variant against the plain NAT on the same inputs (f32
+    within 1e-5 abs; bf16 within 2^-8 |ref| + 1e-4), one launch without a
+    gradient."""
+    from lmnet_tpu_torch.ops.nat_flat import _group_channels
+    from lmnet_tpu_torch.ops.nat_kernel import b3_plan
+
+    C, es = heads * hd, 4 if dtype == torch.float32 else 2
+    plan = b3_plan(B, H, W, heads, hd, dtype)
+    group = hd in (1, 2, 4, 8) and _group_channels(hd, C, es) > 0
+    mapped = C * es % 16 == 0 or W * C * es % 16 == 0  # a 3-D or a 2-D map strides it
+    assert plan["variant"] == ("vec" if group and mapped else "generic")
+    q, k, v, rpb = (torch.from_numpy(a).to(cuda) for a in _qkv(W + hd, B, H, W, C, heads))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = neighborhood_attention_pallas.launches
+    with torch.inference_mode():
+        got = neighborhood_attention_pallas(q, k, v, rpb)
+    torch.cuda.synchronize()
+    assert neighborhood_attention_pallas.launches == before + 1
+    want = neighborhood_attention(q.float(), k.float(), v.float(), rpb, 3)
+    err = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert bool((err <= 2**-8 * want.abs() + 1e-4).all()), err.max().item()

@@ -205,3 +205,32 @@ def test_b7_kernel_rejects_what_it_does_not_take(cuda):
         upsample2x_flat(x.half())
     with pytest.raises(ValueError):  # not NHWC
         upsample2x_flat(x[0])
+
+
+# (B, H, W, C) at which each B7 variant runs: 'tma' at a model width, a
+# one-row map and channel chunks past 256 (a zero-filled tail); 'generic' at
+# chip_smoke.py phase 14's odd pixels (6, 24 and 40 bytes in bf16)
+VARIANT_SHAPES = [(16, 128, 128, 24), (2, 1, 9, 16), (1, 9, 11, 384), (2, 6, 5, 320),
+                  (2, 5, 7, 3), (3, 9, 13, 12), (1, 7, 3, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C", VARIANT_SHAPES)
+def test_b7_each_variant_matches_plain_on_card(cuda, dtype, B, H, W, C):
+    """The plan's variant ('tma' exactly where a pixel's bytes are a
+    multiple of 16) against the plain version, with check_up's bounds:
+    float32 within 1e-6 (1 + |ref|), bf16 within 2^-8 |ref| + 1e-6."""
+    from lmnet_tpu_torch.ops.upsample_flat import upsample_plan
+
+    es = 4 if dtype == torch.float32 else 2
+    assert upsample_plan(B, H, W, C, dtype)["variant"] == ("tma" if C * es % 16 == 0
+                                                            else "generic")
+    x = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(C + W)).to(cuda, dtype)
+    with torch.inference_mode():
+        got = upsample2x_flat(x)
+    torch.cuda.synchronize()
+    want = upsample2x_flat_plain(x.float())
+    err = (got.float() - want).abs()
+    bound = 1e-6 * (1 + want.abs()) if dtype == torch.float32 else 2**-8 * want.abs() + 1e-6
+    assert got.dtype == dtype and bool((err <= bound).all()), err.max().item()
