@@ -115,6 +115,21 @@ Phases, each printing a line, any failure raising (exit code != 0):
      bf16, whose products run on the tensor cores, two ways) at the four
      stages and at B8_SHAPES, each stage timed eagerly and as a CUDA graph
      beside the unfused interior deploy_forward runs (eager and graph).
+ 17. the training CLI (python -m lmnet_tpu_torch.cli.train, called as
+     cli.main) at full width with --apm, 256^2, --synthetic (8 'train'
+     images at 288^2, 4 'val'), --batch_size 8, in a temporary directory
+     under build/: 2 epochs, --resume to 3, --test --hd95, --test --serve
+     (loss within max(5 %, 0.05) and Dice within 0.02 of the eval path's),
+     --visualization (every PNG read back with data/png.py); the CSV shapes,
+     finite values, checkpoint files and the resume line, and the B1 and B2
+     launches each command implies; then train_one_epoch with the on-device
+     augmentation over SyntheticDataset(64, 256, 'train') at B=16, with
+     apply_params on the card held against the CPU for each batch's drawn
+     parameters (images within 1e-3 normalised on all but 0.1 % of the
+     values, masks >= 99.9 % equal), B1 and B2 launches counted, the
+     augmentation's ms per batch of 16 (288^2 -> 256^2, CUDA events) and
+     the epoch's img/s with the augmentation on and off (host clock, in
+     turns).
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -126,6 +141,9 @@ B2's, B3's, B6's and B8's entries also carry ``ms_by_stage``: phase 5's,
 CUDA-graph times; B7's carries ``ms_by_call``, phase 14's per-call times,
 and ``host_us``;
 B4's, B5's and B6's carry ``xla_ms``, the stock bf16 composition's time.
+
+B1's and B2's ``launches_by_path`` include phase 17's CLI cycle ('cli') and
+augmented epoch ('train_augment').
 
 The script's wall seconds come on a line before the kernels line, which
 lists every kernel of the paths as JSON; the line before the last is the
@@ -1933,6 +1951,174 @@ def phase_b8(model, dev, card_line):
              "unfused_ms": ms["unfused"]}, work, launches, by_stage)
 
 
+CLI_BATCH = 8  # the synthetic train set is 8 images: B=16 with drop_last gives no step
+
+
+def run_cli(argv) -> str:
+    """``python -m lmnet_tpu_torch.cli.train`` in this process; prints and
+    returns what it printed."""
+    import contextlib
+    import io
+
+    from lmnet_tpu_torch.cli import train as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"phase 17: cli| {line}")
+    return out
+
+
+def _csv_rows(path) -> list:
+    import csv
+
+    with open(path, encoding="utf-8") as f:
+        return [r for r in csv.reader(f) if r]
+
+
+def phase_cli(dev, card_line) -> dict:
+    """Phase 17; returns the NAT launches of the CLI cycle and of the
+    augmented epoch, and the augmentation's numbers."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.data.augment import apply_params, draw_params
+    from lmnet_tpu_torch.data.png import read_png
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
+    from lmnet_tpu_torch.train import create_train_state, train_one_epoch
+    from lmnet_tpu_torch.train.loop import augment_generator
+
+    def counts():
+        return {"nat_fwd": nat_flat.launches, "nat_bwd": nat_flat_bwd.launches}
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_", dir=build) as tmp:
+        out, ck = Path(tmp) / "out", Path(tmp) / "ckpt"
+        base = ["--synthetic", "--k_fold", "False", "--apm", "--img_size", str(IMG),
+                "--batch_size", str(CLI_BATCH), "--seed", "0", "--ckpt_dir", str(ck),
+                "--out_dir", str(out), "--device", "cuda"]
+        # per command: (extra flags, epochs, want nat_fwd, want nat_bwd). A
+        # train epoch is 8 // 8 = 1 step (4 forward, 4 backward NAT calls)
+        # plus a 4-image eval batch (4 forward); each test or visualization
+        # is one 4-image batch
+        cycle = [("train", [], 2, 2 * 8, 2 * 4), ("resume", ["--resume"], 3, 8, 4),
+                 ("test --hd95", ["--test", "--hd95"], 3, 4, 0),
+                 ("test --serve", ["--test", "--serve"], 3, 4, 0),
+                 ("visualization", ["--visualization"], 3, 4, 0)]
+        cli_launches = {"nat_fwd": 0, "nat_bwd": 0}
+        said = {}
+        t_cli = time.perf_counter()
+        for name, flags, epochs, want_f, want_b in cycle:
+            nat_flat.launches = nat_flat_bwd.launches = 0
+            t0 = time.perf_counter()
+            said[name] = run_cli(base + ["--epochs", str(epochs)] + flags)
+            torch.cuda.synchronize()
+            got = counts()
+            print(f"phase 17: cli {name}: {time.perf_counter() - t0:.2f}s, nat_fwd launches "
+                  f"{got['nat_fwd']} (want {want_f}), nat_bwd launches {got['nat_bwd']} "
+                  f"(want {want_b})")
+            check(got == {"nat_fwd": want_f, "nat_bwd": want_b},
+                  f"cli {name} launched {got}, want {want_f} and {want_b}")
+            for k in cli_launches:
+                cli_launches[k] += got[k]
+        rows = _csv_rows(out / "LM_NetKvasir_0.csv")
+        check(len(rows) == 3 and all(len(r) == 16 for r in rows),
+              f"per-epoch CSV has {[len(r) for r in rows]} columns, want 3 rows of 16")
+        check(all(np.isfinite(float(v)) for r in rows for v in r), "non-finite CSV value")
+        best = _csv_rows(out / "LM_NetKvasirbestresult_0.csv")
+        check(len(best) == 1 and len(best[0]) == 16, "bestresult is not one 16-column row")
+        check((ck / "LM_NetKvasir_0_checkpoint").is_file() and (ck / "LM_NetKvasirbest_0").is_file(),
+              "missing rolling or best checkpoint")
+        check("resumed fold 0 at epoch 2 (best_iou " in said["resume"], "no resume line")
+        trows = _csv_rows(out / "LM_NetKvasirtest_rvd_class.csv")
+        check([len(r) for r in trows] == [9, 8], f"test rows {[len(r) for r in trows]}, want 9, 8")
+        ev_loss, sv_loss = float(trows[0][0]), float(trows[1][0])
+        ev_dice, sv_dice = float(trows[0][5]), float(trows[1][5])
+        ok = (abs(ev_loss - sv_loss) <= max(0.05 * abs(ev_loss), 0.05)
+              and abs(ev_dice - sv_dice) <= 0.02)
+        print(f"phase 17: --test loss {ev_loss} dice {ev_dice} hd95 {trows[0][8]}; --test --serve "
+              f"loss {sv_loss} dice {sv_dice} (tol loss max(5 %, 0.05), dice 0.02) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, "the served test row disagrees with the eval path's")
+        viz = sorted(os.listdir(out / "viz"))
+        shapes = {read_png(str(out / "viz" / f)).shape for f in viz}
+        check(len(viz) == 4 and shapes == {(IMG, IMG, 3)}, f"visualizations {viz} {shapes}")
+        print(f"phase 17: the CLI cycle took {time.perf_counter() - t_cli:.1f}s: CSV 3x16, "
+              f"bestresult, both checkpoints, the resume line, test rows 9 and 8 columns, "
+              f"{len(viz)} PNGs of {IMG}^2 read back; nat_fwd launches {cli_launches['nat_fwd']}, "
+              f"nat_bwd launches {cli_launches['nat_bwd']} [{card_line}]")
+
+    # the augmented epoch: 64 'train' images (288^2) at B=16, 4 steps
+    n_images, seed, epoch = 64, 0, 0
+    load = IMG * 9 // 8
+    ds = SyntheticDataset(n_images, IMG, "train", seed=0)
+    batches = list(make_loader(ds, BATCH))
+    worst, worst_frac, worst_mask = 0.0, 0.0, 1.0
+    aug_ms = []
+    for bi, (images, masks) in enumerate(batches):
+        params = draw_params(augment_generator(seed, epoch, bi), BATCH, (load, load), IMG)
+        gi, gm = torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
+        gx, gy = apply_params(gi, gm, params, IMG)
+        cx, cy = apply_params(torch.from_numpy(images), torch.from_numpy(masks), params, IMG)
+        d = (gx.cpu() - cx).abs()
+        frac = (d > 1e-3).double().mean().item()
+        same = (gy.cpu() == cy).double().mean().item()
+        ok = frac <= 1e-3 and same >= 0.999 and bool(torch.isfinite(gx).all())
+        branches = torch.bincount(params["branch"], minlength=10).tolist()
+        ms = cuda_ms(lambda: apply_params(gi, gm, params, IMG), iters=10, warmup=2)
+        aug_ms.append(ms)
+        print(f"phase 17: apply_params batch {bi} (B={BATCH}, {load}^2 -> {IMG}^2, branch counts "
+              f"{branches}, jitter {int(params['jitter'].sum())}): card vs CPU max |d| "
+              f"{d.max().item():.3e}, share > 1e-3 {frac:.2e} (tol 1e-3), masks equal "
+              f"{same:.6f} (tol 0.999) {'ok' if ok else 'FAIL'}; {ms:.3f} ms on the card")
+        check(ok, f"apply_params on the card disagrees with the CPU at batch {bi}")
+        worst, worst_frac, worst_mask = max(worst, d.max().item()), max(worst_frac, frac), min(worst_mask, same)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        draw_params(augment_generator(seed, epoch, 0), BATCH, (load, load), IMG)
+    draw_ms = (time.perf_counter() - t0) * 100
+    state = create_train_state(_train_model(dev), (BATCH, IMG, IMG, 3), seed=0, epochs=10,
+                               steps_per_epoch=n_images // BATCH, device=dev)
+    nat_flat.launches = nat_flat_bwd.launches = 0
+    state, total, metrics = train_one_epoch(state, make_loader(ds, BATCH), img_size=IMG,
+                                            augment_on_device=True, seed=seed, epoch=epoch)
+    torch.cuda.synchronize()
+    aug_launches = counts()
+    steps = n_images // BATCH
+    print(f"phase 17: train_one_epoch(augment_on_device=True) {n_images} images ({load}^2 -> "
+          f"{IMG}^2, B={BATCH}, bf16, rc_remat) {steps} steps: loss={total:.6f} "
+          f"metrics={json.dumps(metrics)} nat_fwd launches {aug_launches['nat_fwd']} nat_bwd "
+          f"launches {aug_launches['nat_bwd']}")
+    check(np.isfinite(total) and all(np.isfinite(v) for v in metrics.values()),
+          "non-finite augmented training loss or metrics")
+    check(aug_launches == {"nat_fwd": 4 * steps, "nat_bwd": 4 * steps},
+          f"the augmented epoch launched {aug_launches}, want 4 x {steps} each")
+    rates = {"on": [], "off": []}
+    for aug in (False, True, True, False):
+        _, _, m = train_one_epoch(state, make_loader(ds, BATCH), img_size=IMG,
+                                  augment_on_device=aug, seed=seed, epoch=1)
+        rates["on" if aug else "off"].append(m["images_per_sec"])
+    mean_ms = sum(aug_ms) / len(aug_ms)
+    print(f"phase 17: augmentation {mean_ms:.3f} ms per batch of {BATCH} on the card "
+          f"(apply_params, {', '.join(f'{v:.3f}' for v in aug_ms)} over the 4 batches; "
+          f"draw_params {draw_ms:.3f} ms on the host); train epoch {n_images} images: "
+          f"{', '.join(f'{v:.1f}' for v in rates['on'])} img/s with the augmentation "
+          f"({IMG}^2), {', '.join(f'{v:.1f}' for v in rates['off'])} img/s without ({load}^2, "
+          f"normalise only), host clock, in turns off/on/on/off [{card_line}]")
+    result = {"cli": cli_launches, "train_augment": aug_launches,
+              "augment": {"ms_per_batch": mean_ms, "ms_by_batch": aug_ms, "draw_ms": draw_ms,
+                          "card_vs_cpu_max_abs": worst, "card_vs_cpu_share_over_1e-3": worst_frac,
+                          "masks_equal": worst_mask, "img_s_on": rates["on"],
+                          "img_s_off": rates["off"], "card": card_line}}
+    print(f"phase 17: {json.dumps(result)}")
+    return result
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in an Itanium-mangled entry (a length-prefixed
     identifier ending in ``_kernel`` or starting ``reduce_``), with its
@@ -2053,6 +2239,9 @@ def main() -> int:
     phase_options(model, dev, card_line)
     b8, b8_work, b8_launches, b8_stages = phase_b8(model, dev, card_line)
     del model
+    cli = phase_cli(dev, card_line)
+    cli_f = cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
+    cli_b = cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
 
     def rc_numbers(k, extra):
         return {"max_abs_err": max(worst_rc[k], extra[0]), "ms": extra[1], "plain_ms": extra[2]}
@@ -2060,14 +2249,18 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": [
         entry("nat_fwd", "nat_fwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:249",
-              launches["nat_fwd"] + serve_launches,
+              launches["nat_fwd"] + serve_launches + cli_f,
               {"max_abs_err": max(worst, worst_timed), "ms": k_ms, "plain_ms": p_ms}, b1_work,
-              launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches},
+              launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches,
+                                "cli": cli["cli"]["nat_fwd"],
+                                "train_augment": cli["train_augment"]["nat_fwd"]},
               ms_by_stage=b1_stages),
         entry("nat_bwd", "nat_bwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:563",
-              launches["nat_bwd"],
+              launches["nat_bwd"] + cli_b,
               {"max_abs_err": max(worst_bwd, worst_bwd_timed), "ms": kb_ms, "plain_ms": pb_ms},
-              b2_work, ms_by_stage=b2_stages),
+              b2_work, ms_by_stage=b2_stages,
+              launches_by_path={"training": launches["nat_bwd"], "cli": cli["cli"]["nat_bwd"],
+                                "train_augment": cli["train_augment"]["nat_bwd"]}),
         entry("nat_kernel", "nat_kernel.cu", "lmnet_tpu/ops/pallas/nat_kernel.py:231",
               sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches,
               graph_ms=b3["graph_ms"], nat_fwd_ms=b3["nat_fwd_ms"],

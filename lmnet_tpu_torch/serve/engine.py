@@ -20,7 +20,7 @@ JAX's deploy options are here too: ``natt_int8`` (int8 qkv and fc1 products
 off a static-scale int8 LayerNorm), ``ln_fold`` (the LayerNorm affines folded
 into qkv and fc1) and ``skip_compose`` (convl/convm/convs composed into the
 skip blocks' fuse conv). Unlike JAX, ``natt_int8`` with ``ln_fold`` raises
-(JAX drops ``ln_fold``). Left out here: the device mesh and HD95.
+(JAX drops ``ln_fold``). Left out here: the device mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from lmnet_tpu_torch.metrics.confusion import (
     confusion_matrix,
     derived_metrics,
 )
+from lmnet_tpu_torch.metrics.hd95 import hausdorff_distance_95
 from lmnet_tpu_torch.models.blocks import (
     BN_EPS,
     LN_EPS,
@@ -435,13 +436,15 @@ def serving_evaluate(
     natt_int8: bool = False,
     task: str = "binary",
     device: torch.device | str = "cuda",
+    compute_hd95: bool = False,
 ) -> tuple[float, dict[str, float]]:
     """Evaluate a train-mode state dict through the serving path: reparam
     once, move the deploy state to ``device`` (the card unless the caller
     asks for the CPU), then ``deploy_forward`` in bf16 over the loader's
     (uint8 images, uint8 masks) numpy batches. 'auto' in either backend is
     resolved by ``autoselect_backends`` on the first batch and kept for the
-    rest.
+    rest. ``compute_hd95`` adds the mean HD95 of the class-1 masks, on the
+    host from the served predictions, as ``train.loop.evaluate``.
 
     Returns (summed per-batch CE loss, derived metrics), as the JAX engine.
     """
@@ -449,6 +452,7 @@ def serving_evaluate(
     deploy = {k: v.to(device) for k, v in structural_reparam(state).items()}
     cm = ConfusionAccumulator.init(num_classes, device)
     total = torch.zeros((), dtype=torch.float32, device=device)
+    hd_vals = []
     with torch.inference_mode():
         for images, masks in loader:
             x, y = eval_pipeline(
@@ -464,6 +468,14 @@ def serving_evaluate(
                 nat_backend=nat_backend, rc_backend=rc_backend, natt_int8=natt_int8,
             )
             total += cross_entropy_loss(logits, y, (1.0, 4.0), 0.001)
-            cm += confusion_matrix(logits.argmax(dim=-1), y, num_classes)
+            preds = logits.argmax(dim=-1)
+            cm += confusion_matrix(preds, y, num_classes)
+            if compute_hd95:
+                for p, t in zip(preds.cpu().numpy(), y.cpu().numpy()):
+                    v = hausdorff_distance_95(p == 1, t == 1)
+                    if not np.isnan(v):
+                        hd_vals.append(v)
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}
+    if compute_hd95:
+        metrics["hd95"] = float(np.mean(hd_vals)) if hd_vals else float("nan")
     return float(total), metrics

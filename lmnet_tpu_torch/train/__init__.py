@@ -1,3 +1,4 @@
+from lmnet_tpu_torch.train import checkpoint, profiling
 from lmnet_tpu_torch.train.engine import (
     TrainState,
     cosine_epoch_schedule,
@@ -6,15 +7,18 @@ from lmnet_tpu_torch.train.engine import (
     make_optimizer,
     train_step,
 )
-from lmnet_tpu_torch.train.loop import evaluate, train_one_epoch
+from lmnet_tpu_torch.train.loop import evaluate, train_one_epoch, visualize
 
 __all__ = [
     "TrainState",
+    "checkpoint",
     "cosine_epoch_schedule",
     "create_train_state",
     "eval_step",
     "evaluate",
     "make_optimizer",
+    "profiling",
     "train_one_epoch",
     "train_step",
+    "visualize",
 ]
