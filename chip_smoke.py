@@ -120,16 +120,48 @@ Phases, each printing a line, any failure raising (exit code != 0):
      images at 288^2, 4 'val'), --batch_size 8, in a temporary directory
      under build/: 2 epochs, --resume to 3, --test --hd95, --test --serve
      (loss within max(5 %, 0.05) and Dice within 0.02 of the eval path's),
-     --visualization (every PNG read back with data/png.py); the CSV shapes,
-     finite values, checkpoint files and the resume line, and the B1 and B2
-     launches each command implies; then train_one_epoch with the on-device
+     --visualization (every PNG read back with data/png.py), --export PATH
+     (the best checkpoint's deploy artifact, kept for phase 19); the CSV
+     shapes, finite values, checkpoint files and the resume line, and the
+     B1 and B2 launches each command implies; then train_one_epoch with the
+     on-device
      augmentation over SyntheticDataset(64, 256, 'train') at B=16, with
      apply_params on the card held against the CPU for each batch's drawn
      parameters (images within 1e-3 normalised on all but 0.1 % of the
      values, masks >= 99.9 % equal), B1 and B2 launches counted, the
      augmentation's ms per batch of 16 (288^2 -> 256^2, CUDA events) and
      the epoch's img/s with the augmentation on and off (host clock, in
-     turns).
+     turns);
+ 18. the model options (LMNet's gelu_exact, rc_remat, natt_remat): each of
+     rc_remat False and 'branches' ('xla'), 'branches' with
+     rc_train_backend='fused', and natt_remat (flat NAT) on one train_step
+     against the default (rc_remat=True, 'xla', natt_remat off), dropout on
+     from one generator seed: float32 at 64^2, B=2 (loss rel 1e-5, every
+     gradient as phase 8), bf16 at 256^2, B=16 (the loss and each block's
+     gradients no further from a float32 default step than twice the bf16
+     default's distance plus phase 8's slack); under natt_remat the loss
+     bitwise equal to the default's and the generator's state after the
+     step equal. One counted step each of natt_remat (B1 8, B2 4) and
+     'branches' + 'fused' (B5 and B6 32 each); ms a step (CUDA events, in
+     turns there and back) and peak device memory of the five; one
+     gelu_exact step, and LMNet(gelu_exact=True, rc_train_backend='fused')
+     must raise;
+ 19. the export and the daemon: save_deploy of the seeded full-width model
+     on the card and on the CPU, each loaded onto the card, and phase 17's
+     --export file: logits at B=1, 3 and 16 (256^2, bf16) within 0.05 x
+     max(scale, 1) of deploy_forward(nat 'plain', rc 'xla'), argmax flips
+     < 2.5 %; the card's artifact loaded on the CPU (B=1, against the
+     card); the artifact's ms beside eager deploy_forward at its default
+     backends, in turns; the daemon's HTTP server on 127.0.0.1 port 0
+     (max_batch 64, max_wait_ms 5) driven through the loaded artifact and
+     through a default-backend deploy_forward closure (B1 launches
+     counted): 8 client threads x 16 requests of 1-4 images from a seeded
+     generator, every mask against the argmax of the same fn on the
+     request alone (flips < 2.5 %), /healthz's counts against what was
+     sent, img/s, per-request p50/p99 latency, batches and padded images;
+     ``python -m lmnet_tpu_torch.serve.daemon --artifact ... --port 0`` is
+     started as a subprocess on the CPU's file while the checks run: its
+     "serving on" line, one POST, terminated before anything is timed.
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -143,7 +175,10 @@ and ``host_us``;
 B4's, B5's and B6's carry ``xla_ms``, the stock bf16 composition's time.
 
 B1's and B2's ``launches_by_path`` include phase 17's CLI cycle ('cli') and
-augmented epoch ('train_augment').
+augmented epoch ('train_augment'), and phase 18's counted steps
+('natt_remat', 'rc_remat_branches'); B1's also phase 19's closure drive
+('daemon'); B5's and B6's 'rc_remat_branches' (B6's entry carries
+``launches_by_path`` since phase 18).
 
 The script's wall seconds come on a line before the kernels line, which
 lists every kernel of the paths as JSON; the line before the last is the
@@ -600,13 +635,21 @@ def phase_training(dev):
     return {k: train_launches[k] + eval_launches[k] for k in train_launches}
 
 
-def _one_step(model, x, y, seed):
+def _gen_step(model, x, y, seed):
+    """One train_step of ``model`` (dropout on, drawn from a generator
+    seeded ``seed``): the loss, every gradient, and the generator's state
+    after the step."""
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
     from lmnet_tpu_torch.train import create_train_state, train_step
 
     state = create_train_state(model, tuple(x.shape), seed=seed)
     state, loss, _ = train_step(state, x, y, ConfusionAccumulator.init(2, x.device))
-    return float(loss), {n: p.grad for n, p in model.named_parameters()}
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return float(loss), grads, state.generator.get_state()
+
+
+def _one_step(model, x, y, seed):
+    return _gen_step(model, x, y, seed)[:2]
 
 
 def _same_start(dev, seed, *specs):
@@ -1978,9 +2021,12 @@ def _csv_rows(path) -> list:
         return [r for r in csv.reader(f) if r]
 
 
-def phase_cli(dev, card_line) -> dict:
+def phase_cli(dev, card_line, export_path) -> dict:
     """Phase 17; returns the NAT launches of the CLI cycle and of the
-    augmented epoch, and the augmentation's numbers."""
+    augmented epoch, the augmentation's numbers, and under 'export' what
+    phase 19 holds the artifact ``--export`` wrote to ``export_path``
+    against: a batch of 3 and the logits of ``deploy_forward(nat 'plain',
+    rc 'xla')`` of the best checkpoint on it."""
     import os
     import tempfile
     from pathlib import Path
@@ -1988,7 +2034,10 @@ def phase_cli(dev, card_line) -> dict:
     from lmnet_tpu_torch.data import SyntheticDataset, make_loader
     from lmnet_tpu_torch.data.augment import apply_params, draw_params
     from lmnet_tpu_torch.data.png import read_png
+    from lmnet_tpu_torch.models import structural_reparam
     from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
+    from lmnet_tpu_torch.serve import deploy_forward
+    from lmnet_tpu_torch.train import checkpoint as ckpt
     from lmnet_tpu_torch.train import create_train_state, train_one_epoch
     from lmnet_tpu_torch.train.loop import augment_generator
 
@@ -2005,11 +2054,12 @@ def phase_cli(dev, card_line) -> dict:
         # per command: (extra flags, epochs, want nat_fwd, want nat_bwd). A
         # train epoch is 8 // 8 = 1 step (4 forward, 4 backward NAT calls)
         # plus a 4-image eval batch (4 forward); each test or visualization
-        # is one 4-image batch
+        # is one 4-image batch; the export traces the plain NAT
         cycle = [("train", [], 2, 2 * 8, 2 * 4), ("resume", ["--resume"], 3, 8, 4),
                  ("test --hd95", ["--test", "--hd95"], 3, 4, 0),
                  ("test --serve", ["--test", "--serve"], 3, 4, 0),
-                 ("visualization", ["--visualization"], 3, 4, 0)]
+                 ("visualization", ["--visualization"], 3, 4, 0),
+                 ("export", ["--export", str(export_path)], 3, 0, 0)]
         cli_launches = {"nat_fwd": 0, "nat_bwd": 0}
         said = {}
         t_cli = time.perf_counter()
@@ -2048,9 +2098,21 @@ def phase_cli(dev, card_line) -> dict:
         viz = sorted(os.listdir(out / "viz"))
         shapes = {read_png(str(out / "viz" / f)).shape for f in viz}
         check(len(viz) == 4 and shapes == {(IMG, IMG, 3)}, f"visualizations {viz} {shapes}")
+        check(f"wrote serving artifact {export_path}" in said["export"]
+              and export_path.is_file(), "--export wrote no artifact")
+        best_state, _, _ = ckpt.restore_checkpoint(
+            str(ck), "LM_NetKvasirbest_0",
+            create_train_state(_train_model(dev), (CLI_BATCH, IMG, IMG, 3), device=dev))
+        export_x = _served_batch(dev)[:3]
+        with torch.inference_mode():
+            export_ref = deploy_forward(structural_reparam(best_state.model.state_dict()),
+                                        export_x, num_heads=HEADS, nat_backend="plain")
+        del best_state
         print(f"phase 17: the CLI cycle took {time.perf_counter() - t_cli:.1f}s: CSV 3x16, "
               f"bestresult, both checkpoints, the resume line, test rows 9 and 8 columns, "
-              f"{len(viz)} PNGs of {IMG}^2 read back; nat_fwd launches {cli_launches['nat_fwd']}, "
+              f"{len(viz)} PNGs of {IMG}^2 read back, the --export artifact "
+              f"({export_path.stat().st_size / 1e6:.1f} MB); nat_fwd launches "
+              f"{cli_launches['nat_fwd']}, "
               f"nat_bwd launches {cli_launches['nat_bwd']} [{card_line}]")
 
     # the augmented epoch: 64 'train' images (288^2) at B=16, 4 steps
@@ -2116,7 +2178,429 @@ def phase_cli(dev, card_line) -> dict:
                           "masks_equal": worst_mask, "img_s_on": rates["on"],
                           "img_s_off": rates["off"], "card": card_line}}
     print(f"phase 17: {json.dumps(result)}")
+    result["export"] = {"x": export_x, "ref": export_ref}
     return result
+
+
+# phase 18's train-mode options at full width: each against the default
+# (rc_remat=True, rc_train_backend 'xla', natt_remat off, 'flat' NAT)
+OPTIONS = {"default": {}, "rc_remat False": {"rc_remat": False},
+           "rc_remat branches": {"rc_remat": "branches"},
+           "branches fused": {"rc_remat": "branches", "rc_train_backend": "fused"},
+           "natt_remat": {"natt_remat": True}}
+
+
+def _option_models(dev, dtype, seed, names=tuple(OPTIONS)) -> dict:
+    """One LMNet per option in ``names``, each with the first one's weights."""
+    from lmnet_tpu_torch.models import LMNet
+
+    models = {n: LMNet(generator=torch.Generator().manual_seed(seed), dtype=dtype,
+                       **OPTIONS[n]).to(dev) for n in names}
+    first = next(iter(models.values()))
+    for m in models.values():
+        m.load_state_dict(first.state_dict())
+    return models
+
+
+def _grad_blocks(names) -> dict:
+    """Parameter names grouped by block: each ReparamConv ('conv1.0', ...)
+    and each other top-level module ('natt1', 'gft', 'down1', ...)."""
+    blocks = {}
+    for n in names:
+        p = n.split(".")
+        blocks.setdefault(".".join(p[:2]) if p[0].startswith(("conv", "dconv")) else p[0],
+                          []).append(n)
+    return blocks
+
+
+def phase_model_options(dev, card_line) -> dict:
+    """Phase 18; returns the launches of one counted step on each of the
+    natt_remat and rc_remat='branches' + 'fused' paths."""
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.models import LMNet
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
+    from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
+    from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    def zero():
+        nat_flat.launches = nat_flat_bwd.launches = 0
+        dw_gelu_flat.launches = rc_branch_stats.launches = 0
+
+    def counts():
+        return {"nat_fwd": nat_flat.launches, "nat_bwd": nat_flat_bwd.launches,
+                "rc_dw_gelu": dw_gelu_flat.launches, "rc_stats": rc_branch_stats.launches}
+
+    # float32 at 64^2, B=2, TF32 off: each option's loss and every gradient
+    # against the default's, phase 8's bounds; dropout on, from one seed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = _batch(2, 64, "val", 3, dev)
+    models = _option_models(dev, torch.float32, 2)
+    ld, gd, gen_d = _gen_step(models.pop("default"), x, y, seed=5)
+    big = max(g.norm().item() for g in gd.values())
+    for name, m in models.items():
+        lo, go, gen_o = _gen_step(m, x, y, seed=5)
+        worst = max((go[k] - gd[k]).norm().item() / (1e-3 * gd[k].norm().item() + 1e-5 * big)
+                    for k in gd)
+        ok = abs(lo - ld) <= 1e-5 * abs(ld) and worst <= 1.0
+        extra = ""
+        if name == "natt_remat":  # the same masks: the same loss and generator state
+            same_gen = torch.equal(gen_o, gen_d)
+            ok = ok and lo == ld and same_gen
+            extra = f", loss bitwise equal {lo == ld}, generator state equal {same_gen}"
+        print(f"phase 18: train_step fp32 64^2 B=2 dropout on, {name} vs default: loss "
+              f"{lo:.7f} vs {ld:.7f} (tol rel 1e-5); {len(gd)} gradients: worst ||opt-default|| / "
+              f"(1e-3 ||default|| + 1e-5 max||g||) = {worst:.3e} (tol 1){extra} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} disagrees with the default on the fp32 train step")
+    del models
+
+    # bf16 at full width, 256^2, B=16: each option's loss, and its gradients
+    # block by block, no further from a float32 default step than twice the
+    # bf16 default's distance plus 1e-4 of the loss or 1e-3 of the block's
+    # gradient norm (phases 8 and 12)
+    x, y = _batch(BATCH, IMG, "val", 4, dev)
+    ref = _option_models(dev, torch.float32, 3, ("default",))["default"]
+    models = _option_models(dev, torch.bfloat16, 3)
+    ref.load_state_dict(models["default"].state_dict())
+    lr, gr, _ = _gen_step(ref, x, y, seed=6)
+    del ref
+    ld, gd, gen_d = _gen_step(models.pop("default"), x, y, seed=6)
+    blocks = _grad_blocks(gr)
+
+    def dist(g, names):
+        return sum((g[n] - gr[n]).square().sum().item() for n in names) ** 0.5
+
+    def norm(names):
+        return sum(gr[n].square().sum().item() for n in names) ** 0.5
+
+    for name in list(models):
+        lo, go, gen_o = _gen_step(models.pop(name), x, y, seed=6)
+        ratios = {b: dist(go, ns) / (2 * dist(gd, ns) + 1e-3 * norm(ns))
+                  for b, ns in blocks.items()}
+        worst = max(ratios.values())
+        ok = (np.isfinite(lo) and abs(lo - lr) <= 2 * abs(ld - lr) + 1e-4 * abs(lr)
+              and bool(np.isfinite(worst)) and worst <= 1.0)
+        extra = ""
+        if name == "natt_remat":
+            same_gen = torch.equal(gen_o, gen_d)
+            ok = ok and lo == ld and same_gen
+            extra = (f", loss bitwise equal to the default's {lo == ld}, generator state "
+                     f"equal {same_gen}")
+        print(f"phase 18: train_step bf16 {IMG}^2 B={BATCH} dropout on, {name}: loss {lo:.6f}, "
+              f"default {ld:.6f}, fp32 {lr:.6f} (tol |opt-fp32| <= 2 |default-fp32| + 1e-4 "
+              f"|fp32|); {len(blocks)} blocks: worst ||opt-fp32|| / (2 ||default-fp32|| + 1e-3 "
+              f"||fp32||) = {worst:.3e} (tol 1) at {max(ratios, key=ratios.get)}{extra} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} is further from the float32 step than the default on the bf16 step")
+        del go
+    del models, gd, gr
+
+    # one counted step on each new path
+    x, y = _batch(BATCH, IMG, "val", 7, dev)
+    states = {n: create_train_state(_option_models(dev, torch.bfloat16, 4, (n,))[n],
+                                    (BATCH, IMG, IMG, 3), seed=0) for n in OPTIONS}
+    want = {"natt_remat": {"nat_fwd": 8, "nat_bwd": 4, "rc_dw_gelu": 0, "rc_stats": 0},
+            "branches fused": {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32}}
+    launches = {}
+    for name, w in want.items():
+        zero()
+        train_step(states[name], x, y, ConfusionAccumulator.init(2, dev))
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        print(f"phase 18: one train_step bf16 {IMG}^2 B={BATCH} {name}: launches "
+              f"{json.dumps(launches[name])} (want {json.dumps(w)})")
+        check(launches[name] == w, f"{name} launched {launches[name]}, want {w}")
+
+    # ms a step and peak memory, in turns there and back
+    times = {n: [] for n in OPTIONS}
+    peaks = {}
+    for name in (*OPTIONS, *reversed(OPTIONS)):
+        state = states[name]
+        cm = ConfusionAccumulator.init(2, dev)
+        train_step(state, x, y, cm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            train_step(state, x, y, cm)
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / 3)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    for name in OPTIONS:
+        print(f"phase 18: train_step bf16 {IMG}^2 B={BATCH} {name}: "
+              f"{' / '.join(f'{t:.3f}' for t in times[name])} ms/step (turns there and back), "
+              f"peak {peaks[name]:.2f} GiB [{card_line}]")
+    del states
+
+    # gelu_exact: the erf GELU trains with the plain branch graph; 'fused'
+    # (B5 and B6 compute the tanh GELU) refuses it
+    model = LMNet(generator=torch.Generator().manual_seed(5), dtype=torch.bfloat16,
+                  gelu_exact=True).to(dev)
+    lg, _, _ = _gen_step(model, x, y, seed=0)
+    try:
+        LMNet(gelu_exact=True, rc_train_backend="fused")
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    ok = np.isfinite(lg) and "B5 and B6" in refused
+    print(f"phase 18: train_step bf16 {IMG}^2 B={BATCH} gelu_exact: loss {lg:.6f}; "
+          f"LMNet(gelu_exact=True, rc_train_backend='fused') raises: {refused!r} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "gelu_exact did not train, or 'fused' took it")
+    return {"times": times, "peaks": peaks, "launches": launches}
+
+
+def _post_npy(host, port, x, timeout=300):
+    """POST ``x`` as .npy to /predict; (status, body)."""
+    import http.client
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, x)
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", "/predict", body=buf.getvalue())
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _get_json(host, port, path):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+CLIENTS, REQUESTS = 8, 16  # phase 19's client threads and requests each
+
+
+def drive_daemon(fn, pool, dev, label, card_line) -> dict:
+    """Serve ``fn`` over HTTP (127.0.0.1, port 0, max_batch 64, max_wait 5
+    ms) and send it CLIENTS threads of REQUESTS requests of 1-4 images each
+    from ``pool`` (sizes and images from a seeded generator); every mask is
+    held against the argmax of ``fn`` on that request's images alone
+    (flips < 2.5 %), and /healthz's counts against what was sent. Returns
+    the rate, latencies, counts and the B1 launches while it served."""
+    import io
+    import threading
+
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat
+    from lmnet_tpu_torch.serve.daemon import DynamicBatcher, make_server
+
+    rng = np.random.default_rng(19)
+    plan = [[rng.choice(len(pool), size=int(rng.integers(1, 5)), replace=False)
+             for _ in range(REQUESTS)] for _ in range(CLIENTS)]
+    batcher = DynamicBatcher(fn, img_size=IMG, max_batch=64, max_wait_ms=5.0, device=dev)
+    srv = make_server(batcher, "127.0.0.1", 0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    host, port = srv.server_address
+    results = [[None] * REQUESTS for _ in range(CLIENTS)]
+    errors = []
+
+    def client(c):
+        try:
+            for r, idx in enumerate(plan[c]):
+                t0 = time.perf_counter()
+                status, body = _post_npy(host, port, pool[idx])
+                ms = (time.perf_counter() - t0) * 1000
+                check(status == 200, f"{label}: status {status}: {body[:200]!r}")
+                results[c][r] = (np.load(io.BytesIO(body), allow_pickle=False), ms)
+        except Exception as e:  # reported and raised below, on the main thread
+            errors.append(e)
+
+    try:
+        nat_flat.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        b1 = nat_flat.launches
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"{label}: client errors {errors[:3]}")
+        health = _get_json(host, port, "/healthz")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=30)
+        batcher.stop()
+    n_req = CLIENTS * REQUESTS
+    n_img = sum(len(idx) for p in plan for idx in p)
+    check(health["ok"] and health["requests"] == n_req and health["images"] == n_img,
+          f"{label}: /healthz {health}, sent {n_req} requests of {n_img} images")
+    worst = 0.0
+    with torch.inference_mode():
+        for c in range(CLIENTS):
+            for r, idx in enumerate(plan[c]):
+                mask = results[c][r][0]
+                ref = fn(torch.from_numpy(pool[idx]).to(dev, torch.bfloat16)).argmax(-1)
+                check(mask.shape == (len(idx), IMG, IMG) and mask.dtype == np.int32,
+                      f"{label}: mask {mask.shape} {mask.dtype}")
+                worst = max(worst, float((torch.from_numpy(mask).to(dev) != ref).float()
+                                         .mean().item()))
+    lat = np.array([results[c][r][1] for c in range(CLIENTS) for r in range(REQUESTS)])
+    out = {"img_s": n_img / wall, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "requests": n_req, "images": n_img,
+           "batches": health["batches"], "padded": health["padded"], "worst_flips": worst,
+           "b1_launches": b1}
+    ok = worst < 0.025
+    print(f"phase 19: daemon {label}: {CLIENTS} clients x {REQUESTS} requests ({n_img} images "
+          f"of {IMG}^2, 1-4 a request) in {wall:.2f}s = {out['img_s']:.1f} img/s, latency p50 "
+          f"{out['p50_ms']:.1f} ms p99 {out['p99_ms']:.1f} ms, {health['batches']} batches, "
+          f"{health['padded']} padded images, nat_fwd launches {b1}; /healthz counts match; "
+          f"worst argmax flips against fn on the request alone {worst:.4%} (tol 2.5 %) "
+          f"{'ok' if ok else 'FAIL'} [{card_line}]")
+    check(ok, f"{label}: served masks disagree with fn on the request alone")
+    return out
+
+
+def start_daemon(artifact, root):
+    """Start ``python -m lmnet_tpu_torch.serve.daemon --artifact ARTIFACT
+    --port 0`` from ``root``, as a user does; returns the process and a
+    queue of its output lines (read by a thread)."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lmnet_tpu_torch.serve.daemon", "--artifact", str(artifact),
+         "--img_size", str(IMG), "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    return proc, lines
+
+
+def stop_process(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def phase_export_daemon(dev, card_line, cli_export, cli_export_path) -> dict:
+    """Phase 19; returns the daemon's numbers for both drives (B1 launches
+    included) and the artifact's and eager ms."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from lmnet_tpu_torch.models import structural_reparam
+    from lmnet_tpu_torch.serve import deploy_forward
+    from lmnet_tpu_torch.serve.export import load_deploy_file, save_deploy
+
+    root = Path(__file__).resolve().parent
+    model = seeded_model(dev)
+    deploy = structural_reparam(model.state_dict())
+    del model
+    xb = _served_batch(dev)
+    pool = _batch(64, IMG, "val", 5, "cpu")[0].numpy()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_", dir=root / "build") as tmp:
+        paths, fns = {}, {}
+
+        def save(where, on):
+            t0 = time.perf_counter()
+            paths[where] = save_deploy(str(Path(tmp) / f"{where}.pt2"),
+                                       {k: v.to(on) for k, v in deploy.items()},
+                                       img_size=IMG, num_heads=HEADS)
+            print(f"phase 19: save_deploy on the {where} (bf16, symbolic batch, {IMG}^2): "
+                  f"{time.perf_counter() - t0:.1f}s, "
+                  f"{Path(paths[where]).stat().st_size / 1e6:.1f} MB")
+
+        save("cpu", torch.device("cpu"))
+        # the daemon's own entry point on the CPU's file: its start
+        # (interpreter, CUDA, load, warm-up) overlaps the card's export and
+        # the checks below, and it has answered and stopped before anything
+        # is timed
+        t_spawn = time.perf_counter()
+        proc, lines = start_daemon(paths["cpu"], root)
+        try:
+            save("card", dev)
+            for where in paths:
+                t0 = time.perf_counter()
+                fns[where] = load_deploy_file(paths[where], device=dev)
+                print(f"phase 19: load_deploy_file of the {where}'s file onto the card: "
+                      f"{time.perf_counter() - t0:.1f}s")
+            with torch.inference_mode():
+                for b in (1, 3, BATCH):
+                    ref = deploy_forward(deploy, xb[:b], num_heads=HEADS, nat_backend="plain")
+                    bound = 0.05 * max(ref.abs().max().item(), 1.0)
+                    for where, fn in fns.items():
+                        _logits_close(f"phase 19: artifact written on the {where}, on the card, "
+                                      f"B={b}, vs deploy_forward(plain, xla)", fn(xb[:b]), ref,
+                                      bound=bound)
+                cli_fn = load_deploy_file(str(cli_export_path), device=dev)
+                ref = cli_export["ref"]
+                _logits_close("phase 19: the CLI's --export artifact on the card, B=3, vs "
+                              "deploy_forward(plain, xla) of its best checkpoint",
+                              cli_fn(cli_export["x"]), ref,
+                              bound=0.05 * max(ref.abs().max().item(), 1.0))
+                del cli_fn
+                t0 = time.perf_counter()
+                cpu_fn = load_deploy_file(paths["card"], device="cpu")
+                out = cpu_fn(xb[:1].cpu())
+                ref = fns["card"](xb[:1]).cpu()
+                _logits_close(f"phase 19: artifact written on the card, loaded on the CPU "
+                              f"({time.perf_counter() - t0:.1f}s with one B=1 call), vs the card",
+                              out.float(), ref.float(),
+                              bound=0.05 * max(ref.abs().max().item(), 1.0))
+                del cpu_fn
+            said = []
+            while not said or not said[-1].startswith("serving on http://"):
+                said.append(lines.get(timeout=300))
+            up = time.perf_counter() - t_spawn
+            host, port = said[-1].split("http://")[1].split()[0].split(":")
+            status, body = _post_npy(host, int(port), pool[:2])
+            mask = np.load(io.BytesIO(body), allow_pickle=False) if status == 200 else None
+        finally:
+            stop_process(proc)
+        with torch.inference_mode():
+            ref = fns["cpu"](torch.from_numpy(pool[:2]).to(dev, torch.bfloat16)).argmax(-1)
+        flips = (float((torch.from_numpy(mask).to(dev) != ref).float().mean().item())
+                 if mask is not None else 1.0)
+        ok = status == 200 and mask.shape == (2, IMG, IMG) and flips < 0.025
+        print(f"phase 19: python -m lmnet_tpu_torch.serve.daemon --artifact <cpu.pt2> --port 0: "
+              f"{said[-1].strip()!r} {up:.1f}s after its start; one POST of 2 images: status "
+              f"{status}, argmax flips against the artifact in this process {flips:.4%} (tol "
+              f"2.5 %); terminated, exit code {proc.returncode} {'ok' if ok else 'FAIL'}")
+        check(ok, "the daemon subprocess did not serve the request")
+
+        with torch.inference_mode():
+            times = {"artifact": [], "eager": []}
+            eager = lambda: deploy_forward(deploy, xb, num_heads=HEADS)  # noqa: E731
+            for name in ("artifact", "eager", "eager", "artifact"):
+                times[name].append(cuda_ms(eager if name == "eager" else
+                                           (lambda: fns["card"](xb)), iters=5, warmup=2))
+        print(f"phase 19: B={BATCH} bf16 {IMG}^2: the artifact (plain NAT, 'xla' ReparamConv) "
+              f"{' / '.join(f'{t:.3f}' for t in times['artifact'])} ms, eager deploy_forward at "
+              f"its default backends (B1 NAT) {' / '.join(f'{t:.3f}' for t in times['eager'])} ms "
+              f"(turns artifact, eager, eager, artifact) [{card_line}]")
+
+        served = {"artifact": drive_daemon(fns["card"], pool, dev, "artifact", card_line)}
+        closure = lambda x: deploy_forward(deploy, x, num_heads=HEADS)  # noqa: E731
+        served["closure"] = drive_daemon(closure, pool, dev, "deploy_forward closure", card_line)
+        # the artifact runs the plain NAT; the closure B1, four times a batch
+        got = {k: v["b1_launches"] for k, v in served.items()}
+        want = {"artifact": 0, "closure": 4 * served["closure"]["batches"]}
+        print(f"phase 19: nat_fwd launches while serving {json.dumps(got)} (want "
+              f"{json.dumps(want)})")
+        check(got == want, f"the daemon launched B1 {got} times, want {want}")
+    served["ms"] = times
+    return served
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2239,9 +2723,29 @@ def main() -> int:
     phase_options(model, dev, card_line)
     b8, b8_work, b8_launches, b8_stages = phase_b8(model, dev, card_line)
     del model
-    cli = phase_cli(dev, card_line)
-    cli_f = cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
-    cli_b = cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
+    import tempfile
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_export_", dir=build) as tmp:
+        cli_export_path = Path(tmp) / "cli.pt2"
+        cli = phase_cli(dev, card_line, cli_export_path)
+        options = phase_model_options(dev, card_line)
+        served = phase_export_daemon(dev, card_line, cli.pop("export"), cli_export_path)
+    new_paths = {
+        "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
+                    "rc_remat_branches": options["launches"]["branches fused"]["nat_fwd"],
+                    "daemon": served["closure"]["b1_launches"]},
+        "nat_bwd": {"natt_remat": options["launches"]["natt_remat"]["nat_bwd"],
+                    "rc_remat_branches": options["launches"]["branches fused"]["nat_bwd"]},
+        "rc_dw_gelu": {"rc_remat_branches": options["launches"]["branches fused"]["rc_dw_gelu"]},
+        "rc_stats": {"rc_remat_branches": options["launches"]["branches fused"]["rc_stats"]},
+    }
+    cli_f = (cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
+             + sum(new_paths["nat_fwd"].values()))
+    cli_b = (cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
+             + sum(new_paths["nat_bwd"].values()))
 
     def rc_numbers(k, extra):
         return {"max_abs_err": max(worst_rc[k], extra[0]), "ms": extra[1], "plain_ms": extra[2]}
@@ -2253,14 +2757,16 @@ def main() -> int:
               {"max_abs_err": max(worst, worst_timed), "ms": k_ms, "plain_ms": p_ms}, b1_work,
               launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches,
                                 "cli": cli["cli"]["nat_fwd"],
-                                "train_augment": cli["train_augment"]["nat_fwd"]},
+                                "train_augment": cli["train_augment"]["nat_fwd"],
+                                **new_paths["nat_fwd"]},
               ms_by_stage=b1_stages),
         entry("nat_bwd", "nat_bwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:563",
               launches["nat_bwd"] + cli_b,
               {"max_abs_err": max(worst_bwd, worst_bwd_timed), "ms": kb_ms, "plain_ms": pb_ms},
               b2_work, ms_by_stage=b2_stages,
               launches_by_path={"training": launches["nat_bwd"], "cli": cli["cli"]["nat_bwd"],
-                                "train_augment": cli["train_augment"]["nat_bwd"]}),
+                                "train_augment": cli["train_augment"]["nat_bwd"],
+                                **new_paths["nat_bwd"]}),
         entry("nat_kernel", "nat_kernel.cu", "lmnet_tpu/ops/pallas/nat_kernel.py:231",
               sum(b3_launches.values()), b3, b3_work, launches_by_path=b3_launches,
               graph_ms=b3["graph_ms"], nat_fwd_ms=b3["nat_fwd_ms"],
@@ -2269,13 +2775,18 @@ def main() -> int:
               rc_serve_launches["rc_fused"], rc_numbers("rc_fused", rc_timed["rc_fused"]),
               rc_work["rc_fused"], xla_ms=rc_timed["rc_fused"][3]),
         entry("rc_dw_gelu", "rc_dw_gelu.cu", "lmnet_tpu/ops/pallas/rc_flat.py:119",
-              rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"],
+              rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"]
+              + new_paths["rc_dw_gelu"]["rc_remat_branches"],
               rc_numbers("rc_dw_gelu", rc_timed["rc_dw_gelu"]), rc_work["rc_dw_gelu"],
               launches_by_path={"serving": rc_serve_launches["rc_dw_gelu"],
-                                "training": rc_train_launches["rc_dw_gelu"]},
+                                "training": rc_train_launches["rc_dw_gelu"],
+                                **new_paths["rc_dw_gelu"]},
               xla_ms=rc_timed["rc_dw_gelu"][3]),
         entry("rc_stats", "rc_stats.cu", "lmnet_tpu/ops/pallas/rc_train.py:140",
-              rc_train_launches["rc_stats"], rc_numbers("rc_stats", stats_timed), b6_work,
+              rc_train_launches["rc_stats"] + new_paths["rc_stats"]["rc_remat_branches"],
+              rc_numbers("rc_stats", stats_timed), b6_work,
+              launches_by_path={"training": rc_train_launches["rc_stats"],
+                                **new_paths["rc_stats"]},
               xla_ms=stats_timed[3], ms_by_stage=b6_shapes),
         entry("upsample_flat", "upsample_flat.cu", "lmnet_tpu/ops/pallas/upsample_flat.py:148",
               sum(b7_launches.values()), b7, b7_work, launches_by_path=b7_launches,

@@ -11,6 +11,9 @@ Modes:
                    (``--hd95``; ``--serve`` through the serving engine with
                    ``--natt_int8``, ``--rc_backend`` and ``--nat_backend``)
   --visualization  load best checkpoint, render predictions, exit
+  --export PATH    structural_reparam the best checkpoint and write its
+                   deploy graph as a torch.export artifact (serve/export.py;
+                   served by ``python -m lmnet_tpu_torch.serve.daemon``), exit
   --plot           mDice curves from per-fold CSVs
 
 Logging contract (reference train.py:218-224): per-epoch append of 16
@@ -20,10 +23,9 @@ iou, mean_iou) to ``{model}{dataset}_{fold}.csv``; the best row to
 ``{model}{dataset}test_rvd_class.csv``; checkpoints per
 ``train/checkpoint.py``.
 
-Not ported yet, and refused: ``--export`` (ROADMAP A7), ``--distributed
-True`` and ``--n_spatial`` > 1 (A8), ``--rc_remat branches`` (A4). The
-reference's inert flags (``--syncBN``, ``--mixup``, ``--deep_supervision``,
-``--smoothing``) stay inert, as in JAX.
+Not ported yet, and refused: ``--distributed True`` and ``--n_spatial`` > 1
+(ROADMAP A8). The reference's inert flags (``--syncBN``, ``--mixup``,
+``--deep_supervision``, ``--smoothing``) stay inert, as in JAX.
 """
 
 from __future__ import annotations
@@ -107,7 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run --test inference through the serving engine "
                         "(structural_reparam + serve.deploy_forward)")
     p.add_argument("--export", type=str, default=None, metavar="PATH",
-                   help="not ported yet (ROADMAP A7); refused")
+                   help="export the best checkpoint's re-parameterized deploy "
+                        "graph (symbolic batch, --img_size square, bf16, "
+                        "--natt_int8 honoured) to a torch.export artifact at "
+                        "PATH and exit (serve/export.py)")
     p.add_argument("--rc_backend", type=str, default="xla",
                    choices=("auto", "xla", "flat", "pallas"),
                    help="(with --serve) ReparamConv backend: 'xla' the plain "
@@ -137,8 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="NAT heads (default: the reference's 12)")
     p.add_argument("--rc_remat", type=_rc_remat_arg, default=True,
                    help="recompute the ReparamConv blocks in the backward: "
-                        "true/full or false ('branches' is not ported yet, "
-                        "ROADMAP A4)")
+                        "true/full (the whole block), branches (all but the "
+                        "expand conv's output) or false")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train and evaluate on (default the "
                         "card; 'cpu' to run on the CPU)")
@@ -151,17 +156,12 @@ _NAT_BACKENDS = {"": "flat", "flat": "flat", "pallas": "pallas", "xla": "plain",
 
 def refuse_unported(args) -> None:
     """Raise SystemExit for a flag whose path is not ported yet."""
-    if args.export:
-        raise SystemExit("--export is not ported yet (ROADMAP A7: a torch.export "
-                         "artifact of deploy_forward)")
     if args.distributed:
         raise SystemExit("--distributed True is not ported yet (ROADMAP A8: DDP and "
                          "SyncBatchNorm)")
     if args.n_spatial > 1:
         raise SystemExit(f"--n_spatial {args.n_spatial} is not ported yet (ROADMAP A8: "
                          "the spatial mesh axis)")
-    if args.rc_remat == "branches":
-        raise SystemExit("--rc_remat branches is not ported yet (ROADMAP A4)")
 
 
 def _manifest(args, split: str, fold: int) -> str:
@@ -236,7 +236,7 @@ def main_single(fold: int, args) -> dict:
         num_classes=args.num_classes,
         generator=torch.Generator().manual_seed(args.seed),
         dtype=torch.bfloat16 if args.apm else None,
-        rc_remat=args.rc_remat is not False,
+        rc_remat=args.rc_remat,
         **model_kw,
     )
     state = create_train_state(
@@ -272,6 +272,18 @@ def main_single(fold: int, args) -> dict:
         n = visualize(state, test_loader, os.path.join(args.out_dir, "viz"),
                       args.num_classes, args.img_size)
         print(f"wrote {n} visualizations")
+        return {}
+
+    if args.export:
+        from lmnet_tpu_torch.models import structural_reparam
+        from lmnet_tpu_torch.serve.export import save_deploy
+
+        state = _require_checkpoint(best_name, "--export")
+        path = save_deploy(
+            args.export, structural_reparam(state.model.state_dict()), img_size=args.img_size,
+            num_heads=args.num_heads or 12, natt_int8=args.natt_int8,
+        )
+        print(f"wrote serving artifact {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
         return {}
 
     if args.test:
@@ -421,7 +433,8 @@ def main(argv=None) -> None:
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; pass --device cpu "
                          "to run on the CPU")
-    folds = range(5) if (args.k_fold and not (args.test or args.visualization)) else [0]
+    one_fold = args.test or args.visualization or args.export
+    folds = range(5) if (args.k_fold and not one_fold) else [0]
     for fold in folds:
         print(f"========fold {fold} train begin========")
         main_single(fold, args)

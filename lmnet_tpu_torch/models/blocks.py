@@ -12,9 +12,9 @@ updates its running statistics), ``deterministic=False`` turns on dropout,
 drawn from an explicit ``torch.Generator``.
 
 Conv weights are stored OIHW as in ``nn.Conv2d``; every conv runs on an NCHW
-view of the NHWC activation (a permute, no copy). GELU is the tanh form, as
-in the JAX package (``LMNet.gelu_exact=False``); the erf form is not ported
-yet.
+view of the NHWC activation (a permute, no copy). GELU is the tanh form by
+default, as in the JAX package; ``gelu_exact=True`` in every block that
+takes it selects the erf form (JAX's ``LMNet.gelu_exact``).
 
 Dtypes follow flax: the activations carry the compute dtype (bf16 under
 ``LMNet(dtype=torch.bfloat16)``), every float32 parameter is cast to it at
@@ -52,9 +52,10 @@ RC_TRAIN_BACKENDS = ("auto", "xla", "fused", "packed")
 NAT_BACKENDS = ("flat", "pallas", "plain")
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """The tanh GELU (the JAX package's default, ``gelu_exact=False``)."""
-    return F.gelu(x, approximate="tanh")
+def gelu(x: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    """The tanh GELU (the JAX package's default), or the erf form with
+    ``exact`` (JAX's ``gelu_exact=True``)."""
+    return F.gelu(x, approximate="none" if exact else "tanh")
 
 
 def conv_nhwc(
@@ -201,13 +202,22 @@ class LayerNorm(nn.Module):
         return (y + self.bias).to(x.dtype)
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout as ``flax.linen.Dropout``: keep with probability
-    1 - p, scale kept values by 1 / (1 - p). The mask comes from
-    ``generator``, which must live on x's device."""
+def dropout_keep(shape, p: float, generator: torch.Generator | None,
+                 device) -> torch.Tensor:
+    """A dropout keep mask of ``shape``: True with probability 1 - p, drawn
+    from ``generator``, which must live on ``device``."""
     if generator is None:
         raise ValueError("dropout needs a torch.Generator (deterministic=False)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout as ``flax.linen.Dropout``: keep with probability
+    1 - p, scale kept values by 1 / (1 - p). The mask is ``keep`` where the
+    caller drew it already, else ``dropout_keep`` from ``generator``."""
+    if keep is None:
+        keep = dropout_keep(x.shape, p, generator, x.device)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -256,12 +266,16 @@ class ReparamConv(nn.Module):
     1x1 pointwise -> + 1x1 shortcut of the input. ``structural_reparam``
     fuses the branches into the deploy graph's one 5x5 depthwise conv.
 
-    ``remat`` (JAX's ``LMNet.rc_remat=True``): in train mode the block runs
-    under ``torch.utils.checkpoint``, so its backward recomputes the block
-    from its input instead of keeping the branch activations. The
-    checkpointed function returns its five batch statistics and the running
-    statistics are updated outside it: the recompute during the backward
-    would otherwise update them a second time.
+    ``remat`` (JAX's ``LMNet.rc_remat``): True, in train mode the block
+    runs under ``torch.utils.checkpoint``, so its backward recomputes the
+    block from its input instead of keeping the branch activations.
+    'branches': the expand conv runs outside the checkpoint and its output
+    (before BN, as JAX's ``checkpoint_name(x1, 'rc_expand')``) is kept;
+    everything after it (BN, hardswish, the branches, SE, pointwise and
+    shortcut) is recomputed. The checkpointed function returns its five
+    batch statistics and the running statistics are updated outside it: the
+    recompute during the backward would otherwise update them a second
+    time.
 
     ``train_backend`` (JAX's ``rc_train_backend``) picks the train-mode
     branch graph; every choice computes the same function. 'auto' is
@@ -273,15 +287,25 @@ class ReparamConv(nn.Module):
     JAX also gates 'fused' on its TPU layout (H % 8, W * expand % 128) and
     quietly takes the branch graph elsewhere; the port takes it at every
     shape.
+
+    ``gelu_exact``: the erf GELU after the branch sum. B5 and B6 compute
+    the tanh form, so 'fused' with ``gelu_exact`` raises (JAX quietly takes
+    the branch graph there).
     """
 
-    def __init__(self, cin: int, expand: int, cout: int, remat: bool = False,
-                 train_backend: str = "auto"):
+    def __init__(self, cin: int, expand: int, cout: int, remat: bool | str = False,
+                 train_backend: str = "auto", gelu_exact: bool = False):
         super().__init__()
         if train_backend not in RC_TRAIN_BACKENDS:
             raise ValueError(f"rc_train_backend must be one of {RC_TRAIN_BACKENDS}, "
                              f"not {train_backend!r}")
+        if remat not in (False, True, "branches"):
+            raise ValueError(f"remat takes False, True or 'branches', not {remat!r}")
+        if gelu_exact and train_backend == "fused":
+            raise ValueError("rc_train_backend='fused' computes the tanh GELU (the B5 and B6 "
+                             "kernels); it does not take gelu_exact=True")
         self.remat = remat
+        self.gelu_exact = gelu_exact
         self.train_backend = "xla" if train_backend == "auto" else train_backend
         self.expand_conv = nn.Sequential(Conv(cin, expand, 1), BatchNorm(expand))
         self.large_conv = ConvBN(expand, (5, 5))
@@ -296,14 +320,18 @@ class ReparamConv(nn.Module):
         return (self.large_conv, self.square_conv, self.ver_conv, self.hor_conv)
 
     def _tail(self, x, branches):
-        t = self.se(gelu(branches[0] + branches[1] + branches[2] + branches[3]))
+        t = self.se(gelu(branches[0] + branches[1] + branches[2] + branches[3],
+                         self.gelu_exact))
         return self.pointwise_conv(t) + self.shortcut(x)
 
     def forward(self, x, train: bool = False):
         if not train:
             e = F.hardswish(self.expand_conv(x))
             return self._tail(x, [b(e) for b in self._branches()])
-        if self.remat:
+        if self.remat == "branches":
+            out, stats = checkpoint(self._after_expand, x, self.expand_conv[0](x),
+                                    use_reentrant=False, preserve_rng_state=False)
+        elif self.remat:
             out, stats = checkpoint(self._train_graph, x, use_reentrant=False,
                                     preserve_rng_state=False)
         else:
@@ -316,7 +344,11 @@ class ReparamConv(nn.Module):
     def _train_graph(self, x):
         """Train-mode block on batch statistics; returns (out, the five
         (mean, var) pairs: expand BN, then the four branch BNs)."""
-        e, mean, var = self.expand_conv[1].train_forward(self.expand_conv[0](x))
+        return self._after_expand(x, self.expand_conv[0](x))
+
+    def _after_expand(self, x, x1):
+        """``_train_graph`` from the expand conv's output ``x1`` on."""
+        e, mean, var = self.expand_conv[1].train_forward(x1)
         e = F.hardswish(e)
         stats = [(mean.detach(), var.detach())]
         if self.train_backend == "fused":
@@ -360,18 +392,32 @@ class Mlp(nn.Module):
     """Two linears with GELU between; dropout 0.1 after the GELU and after
     the second linear unless ``deterministic``."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, gelu_exact: bool = False):
         super().__init__()
+        self.gelu_exact = gelu_exact
         self.fc1 = Dense(dim, hidden)
         self.fc2 = Dense(hidden, dim)
 
-    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
-        h = gelu(self.fc1(x))
-        if not deterministic:
-            h = dropout(h, DROPOUT, generator)
+    def keep_masks(self, lead_shape, generator: torch.Generator | None, device):
+        """The two dropout keep masks for an input of leading shape
+        ``lead_shape``, drawn from ``generator`` in the order the forward
+        uses them (after the GELU, after fc2)."""
+        return (dropout_keep((*lead_shape, self.fc1.weight.shape[0]), DROPOUT, generator, device),
+                dropout_keep((*lead_shape, self.fc2.weight.shape[0]), DROPOUT, generator, device))
+
+    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None,
+                keep=None):
+        """``keep``: the pair ``keep_masks`` gives, where the caller drew it
+        already; else, unless ``deterministic``, drawn here from
+        ``generator``."""
+        if not deterministic and keep is None:
+            keep = self.keep_masks(x.shape[:-1], generator, x.device)
+        h = gelu(self.fc1(x), self.gelu_exact)
+        if keep is not None:
+            h = dropout(h, DROPOUT, None, keep[0])
         y = self.fc2(h)
-        if not deterministic:
-            y = dropout(y, DROPOUT, generator)
+        if keep is not None:
+            y = dropout(y, DROPOUT, None, keep[1])
         return y
 
 
@@ -414,13 +460,13 @@ class GFT(nn.Module):
     """Global-former bottleneck: patch embed -> LN -> MHSA (+res) -> LN ->
     MLP (+res) -> 1x1 conv."""
 
-    def __init__(self, dim: int, cout: int, num_heads: int = 12):
+    def __init__(self, dim: int, cout: int, num_heads: int = 12, gelu_exact: bool = False):
         super().__init__()
         self.patchembedding = PatchEmbed(dim, dim)
         self.norm1 = LayerNorm(dim)
         self.attention = GlobalAttention(dim, num_heads)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 2 * dim)
+        self.mlp = Mlp(dim, 2 * dim, gelu_exact)
         self.conv = nn.Sequential(Conv(dim, cout, 1))
 
     def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
@@ -443,8 +489,10 @@ class M2Skip(nn.Module):
     """Two-scale skip fusion. mode='bottom' downsamples the larger map to
     the smaller grid; mode='top' upsamples the smaller map."""
 
-    def __init__(self, channels: tuple[int, int], mode: str = "bottom"):
+    def __init__(self, channels: tuple[int, int], mode: str = "bottom",
+                 gelu_exact: bool = False):
         super().__init__()
+        self.gelu_exact = gelu_exact
         cl, cs = channels
         if mode == "bottom":
             cout = cs
@@ -460,15 +508,16 @@ class M2Skip(nn.Module):
 
     def forward(self, xl, xs, train: bool = False):
         x = self.fuse_conv[0](torch.cat([self.convl(xl), self.convs(xs)], dim=-1))
-        return gelu(self.fuse_conv[1](x, train))
+        return gelu(self.fuse_conv[1](x, train), self.gelu_exact)
 
 
 class M3Skip(nn.Module):
     """Three-scale skip fusion: downsample the large scale, 3x3 the middle,
     upsample the small; concatenate; 3x3 + BN + GELU."""
 
-    def __init__(self, channels: tuple[int, int, int]):
+    def __init__(self, channels: tuple[int, int, int], gelu_exact: bool = False):
         super().__init__()
+        self.gelu_exact = gelu_exact
         cl, cm, cs = channels
         self.convl = nn.Sequential(Conv(cl, cm, 3, stride=2))
         self.convm = nn.Sequential(Conv(cm, cm, 3))
@@ -477,7 +526,7 @@ class M3Skip(nn.Module):
 
     def forward(self, xl, xm, xs, train: bool = False):
         x = torch.cat([self.convl(xl), self.convm(xm), self.convs(xs)], dim=-1)
-        return gelu(self.fuse_conv[1](self.fuse_conv[0](x), train))
+        return gelu(self.fuse_conv[1](self.fuse_conv[0](x), train), self.gelu_exact)
 
 
 class NeighborhoodAttention2D(nn.Module):
@@ -530,17 +579,37 @@ def nat(q, k, v, rpb, num_heads: int, backend: str):
 
 class NeighborhoodTransformer(nn.Module):
     """NAT block: patch embed -> LN -> NAT (+res on the embedding) -> LN ->
-    MLP (+res)."""
+    MLP (+res).
 
-    def __init__(self, dim: int, num_heads: int = 12, nat_backend: str = "flat"):
+    ``remat`` (JAX's ``LMNet.natt_remat``): in train mode the block runs
+    under ``torch.utils.checkpoint`` and its backward recomputes it from its
+    input. The dropout masks are drawn from the generator before the
+    checkpointed region, in the order the block uses them, and passed in:
+    the recompute sees the forward's masks, and the generator ends where it
+    ends without ``remat`` (the checkpoint's own RNG saving covers the
+    global generators only).
+    """
+
+    def __init__(self, dim: int, num_heads: int = 12, nat_backend: str = "flat",
+                 gelu_exact: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.patchembedding = PatchEmbed(dim, dim)
         self.norm1 = LayerNorm(dim)
         self.att1 = NeighborhoodAttention2D(dim, num_heads, nat_backend)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 2 * dim)
+        self.mlp = Mlp(dim, 2 * dim, gelu_exact)
 
-    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
+    def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None,
+                train: bool = False):
+        # the patch embedding keeps (B, H, W): the MLP's masks follow x's
+        keep = None if deterministic else self.mlp.keep_masks(x.shape[:-1], generator, x.device)
+        if self.remat and train:
+            return checkpoint(self._block, x, keep, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._block(x, keep)
+
+    def _block(self, x, keep):
         emb = self.patchembedding(x)
         att = self.att1(self.norm1(emb)) + emb
-        return self.mlp(self.norm2(att), deterministic, generator) + att
+        return self.mlp(self.norm2(att), keep=keep) + att

@@ -53,28 +53,38 @@ class LMNet(nn.Module):
       nat_backend: 'flat' (``ops/nat_flat.py``: the CUDA kernels B1 and B2 on
         a card), 'pallas' (``ops/nat_kernel.py``: the B3 forward kernel, the
         backward through the plain NAT) or 'plain' (``ops/nat.py``).
-      rc_remat: recompute every ReparamConv in the backward
-        (``torch.utils.checkpoint``), as JAX's default ``rc_remat=True``.
-        JAX's ``'branches'`` policy is not ported.
+      rc_remat: JAX's ``rc_remat``. True or 'full' (the default): recompute
+        every ReparamConv in the backward (``torch.utils.checkpoint``);
+        'branches': keep each block's expand conv output and recompute the
+        rest; False: keep everything.
       rc_train_backend: the train-mode branch graph of every ReparamConv:
         'auto' (= 'xla', plain torch), 'fused' (the B6 statistics and B5
         conv kernels on a card, ``ops/rc_train.py``) or 'packed' (one
         grouped conv); see ``blocks.ReparamConv``.
+      gelu_exact: the erf GELU in every block (JAX's ``gelu_exact``); the
+        default is the tanh form. Not with ``rc_train_backend='fused'``.
+      natt_remat: recompute each of the four NeighborhoodTransformer blocks
+        in the backward, with the forward's dropout masks (JAX's
+        ``natt_remat``).
     """
 
     def __init__(self, num_classes: int = 2, filters=(12, 24, 48, 96, 192),
                  num_heads: int = 12, generator: torch.Generator | None = None,
                  dtype: torch.dtype | None = None, nat_backend: str = "flat",
-                 rc_remat: bool = True, rc_train_backend: str = "auto"):
+                 rc_remat: bool | str = True, rc_train_backend: str = "auto",
+                 gelu_exact: bool = False, natt_remat: bool = False):
         super().__init__()
-        if not isinstance(rc_remat, bool):
-            raise ValueError(f"rc_remat takes True or False; {rc_remat!r} is not ported")
+        if rc_remat not in (True, False, "full", "branches"):
+            raise ValueError(f"rc_remat takes True, False, 'full' or 'branches', "
+                             f"not {rc_remat!r}")
+        rc_remat = True if rc_remat == "full" else rc_remat
         self.dtype = dtype
         f = tuple(filters)
+        ge = gelu_exact
 
         def rc(cin, expand, cout):
             return ReparamConv(cin, expand, cout, remat=rc_remat,
-                               train_backend=rc_train_backend)
+                               train_backend=rc_train_backend, gelu_exact=ge)
 
         self.conv1 = nn.Sequential(rc(3, f[1], f[0]), rc(f[0], f[1], f[0]))
         self.down1 = nn.Sequential(Conv(f[0], f[1], 3, stride=2))
@@ -85,17 +95,20 @@ class LMNet(nn.Module):
         self.conv4 = nn.Sequential(rc(f[3], f[4], f[3]), rc(f[3], f[4], f[3]))
         self.down4 = nn.Sequential(Conv(f[3], f[4], 3, stride=2))
 
-        self.gft = GFT(sum(f), f[4], num_heads)
+        self.gft = GFT(sum(f), f[4], num_heads, ge)
 
-        self.skip1 = M2Skip((f[2], f[3]), "bottom")
-        self.skip2 = M3Skip((f[1], f[2], f[3]))
-        self.skip3 = M3Skip((f[0], f[1], f[2]))
-        self.skip4 = M2Skip((f[0], f[1]), "top")
+        self.skip1 = M2Skip((f[2], f[3]), "bottom", ge)
+        self.skip2 = M3Skip((f[1], f[2], f[3]), ge)
+        self.skip3 = M3Skip((f[0], f[1], f[2]), ge)
+        self.skip4 = M2Skip((f[0], f[1]), "top", ge)
 
-        self.natt1 = NeighborhoodTransformer(f[3], num_heads, nat_backend)
-        self.natt2 = NeighborhoodTransformer(f[2], num_heads, nat_backend)
-        self.natt3 = NeighborhoodTransformer(f[1], num_heads, nat_backend)
-        self.natt4 = NeighborhoodTransformer(f[0], num_heads, nat_backend)
+        def natt(dim):
+            return NeighborhoodTransformer(dim, num_heads, nat_backend, ge, natt_remat)
+
+        self.natt1 = natt(f[3])
+        self.natt2 = natt(f[2])
+        self.natt3 = natt(f[1])
+        self.natt4 = natt(f[0])
 
         def up(cin, cout):
             return nn.Sequential(Upsample2x(), Conv(cin, cout, 3))
@@ -148,10 +161,10 @@ class LMNet(nn.Module):
 
         x5 = self.gft(pyramid_pool([x1, x2, x3, x4], xd4), det, generator)
 
-        x46 = self.natt1(self.skip1(x3, x4, train), det, generator)
-        x37 = self.natt2(self.skip2(x2, x3, x4, train), det, generator)
-        x28 = self.natt3(self.skip3(x1, x2, x3, train), det, generator)
-        x19 = self.natt4(self.skip4(x1, x2, train), det, generator)
+        x46 = self.natt1(self.skip1(x3, x4, train), det, generator, train)
+        x37 = self.natt2(self.skip2(x2, x3, x4, train), det, generator, train)
+        x28 = self.natt3(self.skip3(x1, x2, x3, train), det, generator, train)
+        x19 = self.natt4(self.skip4(x1, x2, train), det, generator, train)
 
         x6 = rc2(self.dconv1, self.up1(x5) + x46)
         x7 = rc2(self.dconv2, self.up2(x6) + x37)

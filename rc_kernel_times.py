@@ -16,6 +16,11 @@ version first.
 phase 12's model and batch) and prints the device ms a step of B6, B5 and
 their partials' reductions (``chip_smoke.rc_step_ms``) and the device busy
 ms a step: the measure in which B6's redesign shows on the training path.
+``--kernels options`` times a 256^2, B=16 bf16 training step under each of
+phase 18's model options (``chip_smoke.OPTIONS``: the default, ``rc_remat``
+False and 'branches', 'branches' with 'fused', ``natt_remat``) in three
+turns, with peak device memory, then profiles two steps of each (device
+kernels and device busy ms a step).
 
 Run from the repository root: ``python3 rc_kernel_times.py``.
 ``--kernels B6`` times only the kernels named (comma-separated; default
@@ -149,11 +154,54 @@ def time_steps(dev, card, rows, turns=2, steps=2) -> dict:
     return total
 
 
+def time_options(dev, card, rows, turns=3, steps=5) -> dict:
+    """ms a train step (CUDA events over ``steps`` steps, after one) of
+    each model option in ``turns`` turns, alternating the order, peak
+    device memory, then two profiled steps each."""
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.ops import _build
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    _build.build("rc_stats", "rc_dw_gelu", "nat_fwd", "nat_bwd")
+    x, y = cs._batch(cs.BATCH, cs.IMG, "val", 7, dev)
+    states = {n: create_train_state(cs._option_models(dev, torch.bfloat16, 4, (n,))[n],
+                                    (cs.BATCH, cs.IMG, cs.IMG, 3), seed=0) for n in cs.OPTIONS}
+    cm = ConfusionAccumulator.init(2, dev)
+    ms = {n: [] for n in cs.OPTIONS}
+    peak = {}
+    for turn in range(turns):
+        for n in (cs.OPTIONS if turn % 2 == 0 else reversed(cs.OPTIONS)):
+            train_step(states[n], x, y, cm)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                train_step(states[n], x, y, cm)
+            end.record()
+            end.synchronize()
+            ms[n].append(start.elapsed_time(end) / steps)
+            peak[n] = torch.cuda.max_memory_allocated() / 2**30
+    total = {}
+    for n in cs.OPTIONS:
+        _, kernels, busy_ms, wall_ms, _ = cs._profile_steps(states[n], x, y, 2)
+        row = {"option": n, "ms": ms[n], "peak_gib": peak[n], "kernels": len(kernels) / 2,
+               "busy": busy_ms / 2, "profiled_wall": wall_ms / 2}
+        print(f"train_step {cs.IMG}^2 B={cs.BATCH} bf16 {n}: "
+              f"{', '.join(f'{t:.2f}' for t in ms[n])} ms a step in turns, peak "
+              f"{peak[n]:.2f} GiB; profiled: {row['kernels']:.0f} device kernels, device busy "
+              f"{row['busy']:.2f} of {row['profiled_wall']:.2f} ms a step [{card}]")
+        rows.append(row)
+        total[f"{n} ms"] = sum(ms[n]) / turns
+    return total
+
+
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     args.add_argument("--tree", help="time the lmnet_tpu_torch package under this directory")
     args.add_argument("--kernels", default="B4,B5,B6",
-                      help="comma-separated: B4, B5, B6, steps")
+                      help="comma-separated: B4, B5, B6, steps, options")
     opts = args.parse_args()
     if opts.tree:
         sys.path.insert(0, opts.tree)
@@ -170,6 +218,8 @@ def main() -> int:
         total.update(time_b6(dev, card, rows))
     if "steps" in kernels:
         total.update(time_steps(dev, card, rows))
+    if "options" in kernels:
+        total.update(time_options(dev, card, rows))
     import lmnet_tpu_torch
 
     print(json.dumps({"card": card, "package": lmnet_tpu_torch.__file__, "shapes": rows,

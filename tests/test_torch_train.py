@@ -239,8 +239,13 @@ def test_rc_remat_gives_the_same_grads_and_running_stats(variables):
 
 
 def test_rc_remat_takes_no_branches_policy():
-    with pytest.raises(ValueError):
-        TLMNet(**TINY, rc_remat="branches")
+    """JAX's rc_remat values are taken ('full' is True, 'branches' reaches
+    every block); a policy JAX does not have raises."""
+    assert TLMNet(**TINY, rc_remat="full").conv1[0].remat is True
+    assert TLMNet(**TINY, rc_remat="branches").dconv4[1].remat == "branches"
+    for bad in ("rc_expand", "none", 1.5):
+        with pytest.raises(ValueError):
+            TLMNet(**TINY, rc_remat=bad)
 
 
 @pytest.mark.parametrize(
