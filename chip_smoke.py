@@ -162,6 +162,32 @@ Phases, each printing a line, any failure raising (exit code != 0):
      ``python -m lmnet_tpu_torch.serve.daemon --artifact ... --port 0`` is
      started as a subprocess on the CPU's file while the checks run: its
      "serving on" line, one POST, terminated before anything is timed.
+ 20. the data-parallel path (lmnet_tpu_torch/parallel/): (a) the twelve
+     losses, the confusion matrix, binary_iou/binary_dice and
+     derived_metrics on the card against the same calls on the CPU
+     (float32; losses rel 1e-5, counts exact); (b) ``python -m
+     torch.distributed.run --standalone --nproc_per_node 1 chip_smoke.py
+     --cli-rank ...``: the CLI with --distributed True on one NCCL rank,
+     1 epoch at 256^2, --apm, B=8: exit 0, rank 0's CSV and checkpoints,
+     B1 8 and B2 4 launches, the CSV row against the same command without
+     --distributed and its float32 form (the losses by the bf16 rule of
+     "a kernel on the train step", the metrics within 0.02); (c)
+     ``--nproc_per_node 2 chip_smoke.py --ddp-rank DIR``: two ranks on the
+     one card over gloo (NCCL refuses two ranks on a device), each running
+     its 8 rows of a bf16 256^2 B=16 train_step ('flat' NAT, 'fused'
+     ReparamConv, rc_remat, dropout on) with B1, B2, B5 and B6 launched on
+     each rank (4, 4, 32, 32), held against the one-process step on the
+     same 16 images and seeded weights by the bf16 rule (the loss, each
+     block's gradients, each BatchNorm's running statistics, the confusion
+     matrix, all against a float32 step); a float32 64^2 B=4 step (loss
+     rel 1e-5, each gradient as phase 8, running statistics rtol 1e-4);
+     the ranks' parameters bitwise equal after each step; evaluate
+     (float32: loss rel 1e-5, accuracy moved on < 1e-4 of the pixels) and
+     serving_evaluate (bf16, B1 on each rank: the serving rule) over 9
+     images in batches of 4, 4, 1; ms a step of one process and of the two
+     ranks (gloo's all-reduces go through the host) and the all-reduces a
+     step. B1's, B2's, B5's and B6's ``launches_by_path`` gain 'ddp' (the
+     two ranks' own counters summed) and B1's and B2's 'ddp_cli'.
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -1997,7 +2023,7 @@ def phase_b8(model, dev, card_line):
 CLI_BATCH = 8  # the synthetic train set is 8 images: B=16 with drop_last gives no step
 
 
-def run_cli(argv) -> str:
+def run_cli(argv, phase: int = 17) -> str:
     """``python -m lmnet_tpu_torch.cli.train`` in this process; prints and
     returns what it printed."""
     import contextlib
@@ -2010,7 +2036,7 @@ def run_cli(argv) -> str:
         cli.main(argv)
     out = buf.getvalue()
     for line in out.splitlines():
-        print(f"phase 17: cli| {line}")
+        print(f"phase {phase}: cli| {line}")
     return out
 
 
@@ -2603,6 +2629,442 @@ def phase_export_daemon(dev, card_line, cli_export, cli_export_path) -> dict:
     return served
 
 
+# phase 20: the data-parallel path (lmnet_tpu_torch/parallel/)
+DDP_KERNELS = ("nat_fwd", "nat_bwd", "rc_dw_gelu", "rc_stats")
+DDP_SEED = 8  # the seeded weights of phase 20's steps
+DDP_EVAL_IMAGES = 9  # batches of 4, 4, 1: the tail leaves rank 1 none
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _steps_ms(fn, n: int, dev) -> float:
+    """ms a call of ``fn`` over ``n`` calls after one: CUDA events on the
+    card (the host clock where phase 20 is rehearsed on the CPU)."""
+    fn()
+    _sync(dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _kernel_counters():
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
+    from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
+    from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
+
+    return dict(zip(DDP_KERNELS, (nat_flat, nat_flat_bwd, dw_gelu_flat, rc_branch_stats)))
+
+
+def _zero_counters() -> None:
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+
+
+def _read_counters() -> dict:
+    return {k: fn.launches for k, fn in _kernel_counters().items()}
+
+
+def _ddp_model(dev, dtype):
+    """Phase 20's model: full width, seeded, rc_remat=True, 'flat' NAT (B1,
+    B2) and rc_train_backend='fused' (B5, B6)."""
+    return _train_model(dev, dtype, "flat", "fused", seed=DDP_SEED)
+
+
+def _ddp_step(model, x, y, mesh=None):
+    """One train_step (dropout on, the generator seeded alike everywhere):
+    (loss, {name: grad}, state dict after the step, the step's confusion
+    matrix, summed over the ranks under a mesh), on the CPU."""
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.parallel.mesh import data_group, replicate, shard_rows
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    state = create_train_state(model, tuple(x.shape), seed=9, device=x.device)
+    cm = ConfusionAccumulator.init(2, x.device)
+    if mesh is None:
+        state, loss, cm = train_step(state, x, y, cm)
+    else:
+        replicate(mesh, state)
+        rows = shard_rows(mesh, len(x))
+        state, loss, cm = train_step(state, x[rows], y[rows], cm, mesh=mesh, global_rows=len(x))
+        torch.distributed.all_reduce(cm, group=data_group(mesh))
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return (float(loss), grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            cm.cpu())
+
+
+def _ddp_eval_set():
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+
+    return make_loader(SyntheticDataset(DDP_EVAL_IMAGES, IMG, "val", seed=12), 4)
+
+
+def _ddp_evals(dev, mesh=None):
+    """evaluate at float32 and serving_evaluate (bf16, B1) of the seeded
+    float32 model over the eval set: (loss, metrics) for each."""
+    from lmnet_tpu_torch.serve import serving_evaluate
+    from lmnet_tpu_torch.train import create_train_state, evaluate
+
+    state = create_train_state(_ddp_model(dev, torch.float32), (4, IMG, IMG, 3), seed=0,
+                               device=dev)
+    ev = evaluate(state, _ddp_eval_set(), img_size=IMG, mesh=mesh)
+    sv = serving_evaluate(state.model.state_dict(), _ddp_eval_set(), 2, IMG, device=dev,
+                          mesh=mesh)
+    return ev, sv
+
+
+def ddp_rank_main(out_dir, device_type: str = "cuda") -> int:
+    """One rank of phase 20(c), under torchrun: two ranks share the one card
+    over gloo (NCCL refuses two ranks on one device). Runs the 2-rank steps,
+    evaluate and serving_evaluate, times the bf16 step, and saves what it
+    got, its own kernel launches and its all-reduces to
+    ``out_dir/rank{r}.pt``."""
+    import os
+    from pathlib import Path
+
+    from lmnet_tpu_torch.parallel import batch as pbatch
+    from lmnet_tpu_torch.parallel import dist_utils
+    from lmnet_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_utils.init_distributed_mode(device_type, backend="gloo")
+    rank = dist_utils.get_rank()
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device("cpu"))
+    mesh = make_mesh(device_type=device_type)
+    got = {"rank": rank, "world": dist_utils.get_world_size(),
+           "backend": torch.distributed.get_backend(), "device": str(dev)}
+    _zero_counters()
+    x, y = _batch(BATCH, IMG, "val", 4, dev)
+    before = dict(pbatch.COUNTS)
+    got["bf16"] = _ddp_step(_ddp_model(dev, torch.bfloat16), x, y, mesh)
+    _sync(dev)
+    got["collectives"] = {k: pbatch.COUNTS[k] - before[k] for k in before}
+    got["step_launches"] = _read_counters()
+    x32, y32 = _batch(4, 64, "val", 3, dev)
+    got["fp32"] = _ddp_step(_ddp_model(dev, torch.float32), x32, y32, mesh)
+    got["evals"] = _ddp_evals(dev, mesh)
+    _sync(dev)
+    got["launches"] = _read_counters()
+
+    # ms a step in two turns: 3 steps after a warm-up, CUDA events
+    state = create_train_state(_ddp_model(dev, torch.bfloat16), (BATCH, IMG, IMG, 3), seed=0,
+                               device=dev)
+    rows = shard_rows(mesh, BATCH)
+    cm = ConfusionAccumulator.init(2, dev)
+    times = [_steps_ms(lambda: train_step(state, x[rows], y[rows], cm, mesh=mesh,
+                                          global_rows=BATCH), 3, dev) for _ in range(2)]
+    got["ms"] = times
+    print(f"phase 20: rank {rank}| {got['backend']} on {dev}, kernels launched "
+          f"{json.dumps(got['launches'])}, all-reduces in the bf16 step "
+          f"{json.dumps(got['collectives'])}, ms a step {times}", flush=True)
+    torch.save(got, Path(out_dir) / f"rank{rank}.pt")
+    dist_utils.cleanup()
+    return 0
+
+
+def cli_rank_main(argv) -> int:
+    """Phase 20(b)'s child, under torchrun: the CLI's main with ``argv``,
+    then this rank's B1 and B2 launches as one line."""
+    from lmnet_tpu_torch.cli import train as cli
+    from lmnet_tpu_torch.parallel import dist_utils
+
+    _zero_counters()
+    cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    print("LAUNCHES " + json.dumps({"rank": dist_utils.get_rank(), **_read_counters()}),
+          flush=True)
+    return 0
+
+
+def _torchrun(nproc: int, args, timeout: int = 600) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py args``; its output, each line printed; raises if it
+    fails."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), __file__, *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    for line in proc.stdout.splitlines():
+        print(f"phase 20: torchrun| {line}")
+    check(proc.returncode == 0, f"torchrun {' '.join(args[:1])} exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _bf16_rule(label, got, one, ref) -> float:
+    """The bf16 rule of "a kernel on the train step" (PERF.md section 2):
+    the 2-rank step ``got`` and the one-process step ``one``, each (loss,
+    gradients, running statistics, confusion matrix), held to the float32
+    one-process step ``ref``. The loss no further from ref's than 2 x one's
+    distance + 1e-4 |ref|; each block of gradients (``_grad_blocks``) and
+    each BatchNorm's running statistics no further than 2 x one's distance
+    + 1e-3 ||ref||; the confusion matrix's distance (half its L1) no more
+    than 2 x one's + 1e-4 of the pixels. Returns the worst ratio (tol 1)."""
+    (lg, gg, sg, cg), (lo, go, so, co), (lr, gr, sr, cr) = got, one, ref
+
+    def dist(a, b, names):
+        return sum((a[n].float() - b[n].float()).square().sum().item() for n in names) ** 0.5
+
+    ratios = {"loss": abs(lg - lr) / (2 * abs(lo - lr) + 1e-4 * abs(lr))}
+    for kind, g, o, r, blocks in (("gradients", gg, go, gr, _grad_blocks(gr)),
+                                  ("running statistics", sg, so, sr, _stat_blocks(sr))):
+        for b, names in blocks.items():
+            norm = sum(r[n].float().square().sum().item() for n in names) ** 0.5
+            ratios[f"{kind} {b}"] = dist(g, r, names) / (2 * dist(o, r, names) + 1e-3 * norm)
+    ratios["confusion matrix"] = float((cg - cr).abs().sum()) / (
+        2 * float((co - cr).abs().sum()) + 2e-4 * float(cr.sum()))
+    worst = max(ratios, key=ratios.get)
+    ok = all(np.isfinite(v) and v <= 1.0 for v in ratios.values())
+    print(f"phase 20: {label}: loss 2 ranks {lg:.6f}, one process {lo:.6f}, fp32 {lr:.6f}; "
+          f"{len(ratios)} checks (the loss, {len(_grad_blocks(gr))} gradient blocks, "
+          f"{len(_stat_blocks(sr))} BatchNorms' running statistics, the confusion matrix): "
+          f"worst |2 ranks - fp32| / (2 |one - fp32| + slack) = {ratios[worst]:.3e} at {worst} "
+          f"(tol 1) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the 2-rank step is further from float32 than one process")
+    return ratios[worst]
+
+
+def _stat_blocks(sd) -> dict:
+    """The running statistics grouped by BatchNorm."""
+    blocks = {}
+    for n in sd:
+        if n.endswith(("running_mean", "running_var")):
+            blocks.setdefault(n.rsplit(".", 1)[0], []).append(n)
+    return blocks
+
+
+def phase_ddp(dev, card_line) -> dict:
+    """Phase 20; returns the kernel launches of the 2-rank run (each rank's
+    and their sum) and of the NCCL CLI run."""
+    import csv
+    import tempfile
+    from pathlib import Path
+
+    from lmnet_tpu_torch import losses as L
+    from lmnet_tpu_torch import metrics as M
+    from lmnet_tpu_torch.metrics import functional as MF
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (a) the losses and metrics on the card against the same call on the
+    # CPU: float32, losses rtol 1e-5, counts exact
+    g = torch.Generator().manual_seed(20)
+    logits = torch.randn(4, 32, 32, 2, generator=g) * 3
+    labels = torch.randint(0, 2, (4, 32, 32), generator=g)
+    ign = labels.clone()
+    ign[torch.rand(ign.shape, generator=g) < 0.1] = 255
+    multi = (torch.rand(4, 32, 32, 2, generator=g) < 0.4).float()
+    alpha = torch.rand(4, 32, 32, 1, generator=g)
+    probs = torch.softmax(logits, -1)
+    onehot = torch.nn.functional.one_hot(labels, 2).float()
+    valid = (torch.rand(4, 32, 32, generator=g) < 0.9).int()
+    flat_logits, flat_labels = logits.reshape(-1, 2)[:512], labels.reshape(-1)[:512]
+    cases = {
+        "cross_entropy_loss": (L.cross_entropy_loss, (logits, labels, (1.0, 4.0), 0.001)),
+        "dice_loss": (L.dice_loss, (logits, labels, (1.0, 4.0))),
+        "segmentation_loss": (L.segmentation_loss, (logits, labels)),
+        "bce_dice_loss": (L.bce_dice_loss, (logits, labels)),
+        "focal_loss": (L.focal_loss, (logits, multi, alpha)),
+        "sigmoid_focal_loss": (L.sigmoid_focal_loss, (logits[..., 1], multi[..., 1])),
+        "focal_loss_per_class": (L.focal_loss_per_class, (logits, labels)),
+        "class_balanced_loss": (L.class_balanced_loss, (flat_logits, flat_labels, (90, 10))),
+        "mmseg_binary_dice_loss": (L.mmseg_binary_dice_loss,
+                                   (probs[..., 1], onehot[..., 1], valid)),
+        "mmseg_dice_loss": (L.mmseg_dice_loss, (probs, onehot, valid)),
+        "official_dice_loss": (L.official_dice_loss, (logits, ign)),
+    }
+    worst = 0.0
+    for name, (fn, args) in cases.items():
+        want = fn(*args)
+        have = fn(*[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]).cpu()
+        err = float(((have - want).abs() / want.abs().clamp(min=1e-30)).max())
+        worst = max(worst, err)
+        check(err <= 1e-5, f"{name} on the card differs from the CPU by rel {err:.3e}")
+    w_dev = L.effective_number_weights((90, 10), device=dev).cpu()
+    check(torch.equal(w_dev, L.effective_number_weights((90, 10))), "effective_number_weights")
+    pred = logits.argmax(-1)
+    counts_ok = (torch.equal(M.confusion_matrix(pred.to(dev), labels.to(dev), 2).cpu(),
+                             M.confusion_matrix(pred, labels, 2))
+                 and torch.equal(M.binary_iou(probs[..., 1].to(dev), labels.to(dev)).cpu(),
+                                 M.binary_iou(probs[..., 1], labels))
+                 and torch.equal(M.binary_dice(probs[..., 1].to(dev), labels.to(dev)).cpu(),
+                                 M.binary_dice(probs[..., 1], labels)))
+    stats = MF.get_stats(pred.numpy(), labels.numpy(), "multiclass", num_classes=2)
+    dm_dev = M.derived_metrics(M.confusion_matrix(pred.to(dev), labels.to(dev), 2))
+    dm_cpu = M.derived_metrics(M.confusion_matrix(pred, labels, 2))
+    counts_ok = counts_ok and all(float(dm_dev[k]) == float(dm_cpu[k]) for k in dm_cpu)
+    print(f"phase 20: (a) {len(cases) + 1} losses on the card against the CPU: worst rel "
+          f"{worst:.3e} (tol 1e-5); confusion matrix, binary_iou, binary_dice, derived_metrics "
+          f"equal {counts_ok}; functional iou {MF.iou_score(*stats, reduction='micro'):.6f} "
+          f"{'ok' if counts_ok else 'FAIL'}")
+    check(counts_ok, "a count or metric on the card differs from the CPU")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_", dir=build) as tmp:
+        tmp = Path(tmp)
+
+        # (b) the CLI with --distributed True under torchrun, one rank on
+        # NCCL, against the same command without --distributed (in this
+        # process) and the float32 command (no --apm) by the bf16 rule
+        def argv(name, apm=True):
+            return (["--synthetic", "--k_fold", "False", "--img_size", str(IMG),
+                     "--batch_size", str(CLI_BATCH), "--epochs", "1", "--seed", "0",
+                     "--ckpt_dir", str(tmp / name / "ckpt"), "--out_dir", str(tmp / name / "out"),
+                     "--device", dev.type] + (["--apm"] if apm else []))
+
+        t0 = time.perf_counter()
+        said = _torchrun(1, ["--cli-rank", *argv("nccl"), "--distributed", "True"])
+        t_nccl = time.perf_counter() - t0
+        cli_launch = json.loads(next(line for line in said.splitlines()
+                                     if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
+        for name, apm in (("one", True), ("fp32", False)):
+            run_cli(argv(name, apm), phase=20)
+        rows = {n: [[float(v) for v in r]
+                    for r in _csv_rows(tmp / n / "out" / "LM_NetKvasir_0.csv")]
+                for n in ("nccl", "one", "fp32")}
+        files = sorted(p.name for p in (tmp / "nccl" / "out").iterdir())
+        ckpts = sorted(p.name for p in (tmp / "nccl" / "ckpt").iterdir())
+        ok = (files == ["LM_NetKvasir_0.csv", "LM_NetKvasirbestresult_0.csv"]
+              and ckpts == ["LM_NetKvasir_0_checkpoint", "LM_NetKvasirbest_0"]
+              and all(len(r) == 1 and len(r[0]) == 16 for r in rows.values())
+              and cli_launch["nat_fwd"] == 8 and cli_launch["nat_bwd"] == 4)
+        d, o, f = (np.array(rows[n][0]) for n in ("nccl", "one", "fp32"))
+        # the losses (columns 0 and 8) by the bf16 rule, + 1e-4 for the CSV's
+        # 4 decimals; the metrics within 0.02 of the run without --distributed
+        loss_ok = all(abs(d[i] - f[i]) <= 2 * abs(o[i] - f[i]) + 1e-4 * abs(f[i]) + 1e-4
+                      for i in (0, 8))
+        metric_ok = bool(np.all(np.abs(np.delete(d - o, [0, 8])) <= 0.02))
+        ok = ok and loss_ok and metric_ok
+        print(f"phase 20: (b) torchrun --nproc_per_node 1 cli --distributed True (NCCL) "
+              f"{t_nccl:.1f}s: files {files}, checkpoints {ckpts}, B1 {cli_launch['nat_fwd']} "
+              f"B2 {cli_launch['nat_bwd']} launches (want 8, 4); CSV row {d.tolist()} against "
+              f"one process {o.tolist()} and fp32 {f.tolist()}: losses by the bf16 rule "
+              f"{loss_ok}, metrics within 0.02 {metric_ok} {'ok' if ok else 'FAIL'}")
+        check(ok, "the NCCL --distributed CLI run disagrees with one process")
+
+        # (c) two ranks on the one card over gloo: the 2-rank steps, evaluate
+        # and serving_evaluate against one process on the same inputs
+        from lmnet_tpu_torch.metrics import ConfusionAccumulator
+        from lmnet_tpu_torch.train import create_train_state, train_step
+
+        x, y = _batch(BATCH, IMG, "val", 4, dev)
+        state = create_train_state(_ddp_model(dev, torch.bfloat16), (BATCH, IMG, IMG, 3), seed=0,
+                               device=dev)
+        cm = ConfusionAccumulator.init(2, dev)
+
+        def time_one():
+            return _steps_ms(lambda: train_step(state, x, y, cm), 3, dev)
+
+        one_ms = [time_one()]
+        t0 = time.perf_counter()
+        _torchrun(2, ["--ddp-rank", str(tmp), dev.type])
+        t_gloo = time.perf_counter() - t0
+        one_ms.append(time_one())
+        del state
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"]
+          and [r["world"] for r in ranks] == [2, 2], "the ranks are not a gloo group of two")
+    for r in ranks:
+        check(all(r["launches"][k] > 0 for k in DDP_KERNELS),
+              f"rank {r['rank']} launched {r['launches']}: every kernel of the path must run")
+        check(r["step_launches"] == {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32},
+              f"rank {r['rank']}'s bf16 step launched {r['step_launches']}")
+    # bf16 256^2, B=16 (8 a rank): against one process by the bf16 rule
+    one_bf16 = _ddp_step(_ddp_model(dev, torch.bfloat16), x, y)
+    ref = _ddp_model(dev, torch.float32)
+    ref.load_state_dict(_ddp_model(dev, torch.bfloat16).state_dict())
+    fp32 = _ddp_step(ref, x, y)
+    del ref
+
+    got = ranks[0]["bf16"]
+
+    def stats_only(step):
+        return step[0], step[1], {k: v for k, v in step[2].items() if "running" in k}, step[3]
+
+    b16 = _bf16_rule(f"(c) bf16 {IMG}^2 B={BATCH} step, 2 ranks x {BATCH // 2} against one "
+                     "process",
+                     stats_only(got), stats_only(one_bf16), stats_only(fp32))
+    del one_bf16, fp32
+    same = all(torch.equal(ranks[0][k][2][n], ranks[1][k][2][n])
+               for k in ("bf16", "fp32") for n in ranks[0][k][2])
+    print(f"phase 20: (c) both ranks' parameters and running statistics bitwise equal after "
+          f"the bf16 and fp32 steps: {same} {'ok' if same else 'FAIL'}")
+    check(same, "the ranks' parameters differ after the step")
+
+    # fp32 64^2, B=4 (2 a rank): loss rel 1e-5, each gradient ||d|| <= 1e-3
+    # ||ref|| + 1e-5 max||g||, running statistics rtol 1e-4 / atol 1e-5 max
+    x32, y32 = _batch(4, 64, "val", 3, dev)
+    lo, go, so, co = _ddp_step(_ddp_model(dev, torch.float32), x32, y32)
+    lg, gg, sg, cg = ranks[0]["fp32"]
+    big = max(v.norm().item() for v in go.values())
+    worst_g = max((gg[k] - go[k]).norm().item() / (1e-3 * go[k].norm().item() + 1e-5 * big)
+                  for k in go)
+    worst_s = max(float(((sg[k] - so[k]).abs()
+                         / (1e-4 * so[k].abs() + 1e-5 * so[k].abs().max().item())).max())
+                  for k in so if "running" in k)
+    ok = (abs(lg - lo) <= 1e-5 * abs(lo) and worst_g <= 1.0 and worst_s <= 1.0
+          and torch.equal(cg, co))
+    print(f"phase 20: (c) fp32 64^2 B=4 step, 2 ranks x 2 against one process: loss {lg:.7f} "
+          f"vs {lo:.7f} (tol rel 1e-5); {len(go)} gradients worst ||2r-1p|| / (1e-3 ||1p|| + "
+          f"1e-5 max||g||) = {worst_g:.3e}; running statistics worst {worst_s:.3e} (tol 1); "
+          f"confusion matrix equal {torch.equal(cg, co)} {'ok' if ok else 'FAIL'}")
+    check(ok, "the fp32 2-rank step disagrees with one process")
+
+    # evaluate (fp32) and serving_evaluate (bf16, B1 on each rank)
+    (el, em), (sl, sm) = _ddp_evals(dev)
+    (gel, gem), (gsl, gsm) = ranks[0]["evals"]
+    pixels = DDP_EVAL_IMAGES * IMG * IMG
+    ev_flips = abs(gem["accuracy"] - em["accuracy"]) * pixels
+    sv_flips = abs(gsm["accuracy"] - sm["accuracy"]) * pixels
+    ok = (ranks[0]["evals"] == ranks[1]["evals"] and abs(gel - el) <= 1e-5 * abs(el)
+          and ev_flips <= 1e-4 * pixels and abs(gsl - sl) <= 0.02 * abs(sl)
+          and sv_flips <= 0.025 * pixels
+          and all(abs(gsm[k] - sm[k]) <= 0.02 for k in sm))
+    print(f"phase 20: (c) evaluate fp32 over {DDP_EVAL_IMAGES} images (batches 4, 4, 1): 2 ranks "
+          f"loss {gel:.6f} vs {el:.6f} (tol rel 1e-5), metrics equal {gem == em}, accuracy "
+          f"moved by {ev_flips:.0f} pixels (tol 1e-4 of {pixels}); serving_evaluate bf16: loss "
+          f"{gsl:.6f} vs {sl:.6f} (tol 2 %), metrics equal {gsm == sm}, {sv_flips:.0f} pixels "
+          f"(tol 2.5 %) {'ok' if ok else 'FAIL'}")
+    check(ok, "the 2-rank evaluate or serving_evaluate disagrees with one process")
+
+    coll = ranks[0]["collectives"]
+    two_ms = [r["ms"] for r in ranks]
+    print(f"phase 20: (c) train_step bf16 {IMG}^2 B={BATCH} 'flat' + 'fused', rc_remat: one "
+          f"process {' / '.join(f'{t:.1f}' for t in one_ms)} ms (before / after the 2-rank run), "
+          f"2 ranks x {BATCH // 2} on one card over gloo {two_ms} ms a step (two turns each rank; "
+          f"gloo "
+          f"copies every all-reduce through the host: not NCCL's time) [{card_line}]; "
+          f"all-reduces a step: {coll['forward']} in forwards, {coll['backward']} in backwards, "
+          f"{coll['grads']} of the gradients; torchrun 2 ranks {t_gloo:.1f}s")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in DDP_KERNELS}
+    print(f"phase 20: data-parallel path: kernel launches {json.dumps(launches)} "
+          f"(rank 0 {json.dumps(ranks[0]['launches'])}, "
+          f"rank 1 {json.dumps(ranks[1]['launches'])}), "
+          f"the NCCL CLI run {json.dumps({k: cli_launch[k] for k in DDP_KERNELS})}; "
+          f"phase 20 {time.perf_counter() - t_phase:.1f}s")
+    return {"ddp": launches, "ddp_cli": {k: cli_launch[k] for k in DDP_KERNELS},
+            "one_ms": one_ms, "two_ms": two_ms, "collectives": coll, "bf16_worst": b16}
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in an Itanium-mangled entry (a length-prefixed
     identifier ending in ``_kernel`` or starting ``reduce_``), with its
@@ -2733,6 +3195,7 @@ def main() -> int:
         cli = phase_cli(dev, card_line, cli_export_path)
         options = phase_model_options(dev, card_line)
         served = phase_export_daemon(dev, card_line, cli.pop("export"), cli_export_path)
+    ddp = phase_ddp(dev, card_line)
     new_paths = {
         "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
                     "rc_remat_branches": options["launches"]["branches fused"]["nat_fwd"],
@@ -2742,6 +3205,10 @@ def main() -> int:
         "rc_dw_gelu": {"rc_remat_branches": options["launches"]["branches fused"]["rc_dw_gelu"]},
         "rc_stats": {"rc_remat_branches": options["launches"]["branches fused"]["rc_stats"]},
     }
+    for k in DDP_KERNELS:  # phase 20: the two ranks' sum, and the NCCL CLI run
+        new_paths[k]["ddp"] = ddp["ddp"][k]
+        if ddp["ddp_cli"][k]:
+            new_paths[k]["ddp_cli"] = ddp["ddp_cli"][k]
     cli_f = (cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
              + sum(new_paths["nat_fwd"].values()))
     cli_b = (cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
@@ -2776,14 +3243,14 @@ def main() -> int:
               rc_work["rc_fused"], xla_ms=rc_timed["rc_fused"][3]),
         entry("rc_dw_gelu", "rc_dw_gelu.cu", "lmnet_tpu/ops/pallas/rc_flat.py:119",
               rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"]
-              + new_paths["rc_dw_gelu"]["rc_remat_branches"],
+              + sum(new_paths["rc_dw_gelu"].values()),
               rc_numbers("rc_dw_gelu", rc_timed["rc_dw_gelu"]), rc_work["rc_dw_gelu"],
               launches_by_path={"serving": rc_serve_launches["rc_dw_gelu"],
                                 "training": rc_train_launches["rc_dw_gelu"],
                                 **new_paths["rc_dw_gelu"]},
               xla_ms=rc_timed["rc_dw_gelu"][3]),
         entry("rc_stats", "rc_stats.cu", "lmnet_tpu/ops/pallas/rc_train.py:140",
-              rc_train_launches["rc_stats"] + new_paths["rc_stats"]["rc_remat_branches"],
+              rc_train_launches["rc_stats"] + sum(new_paths["rc_stats"].values()),
               rc_numbers("rc_stats", stats_timed), b6_work,
               launches_by_path={"training": rc_train_launches["rc_stats"],
                                 **new_paths["rc_stats"]},
@@ -2805,4 +3272,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # phase 20's children, started by torchrun: a rank of the 2-rank run, or
+    # the CLI under --distributed
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank_main(sys.argv[2:]))
     sys.exit(main())

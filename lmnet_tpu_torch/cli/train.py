@@ -23,9 +23,19 @@ iou, mean_iou) to ``{model}{dataset}_{fold}.csv``; the best row to
 ``{model}{dataset}test_rvd_class.csv``; checkpoints per
 ``train/checkpoint.py``.
 
-Not ported yet, and refused: ``--distributed True`` and ``--n_spatial`` > 1
-(ROADMAP A8). The reference's inert flags (``--syncBN``, ``--mixup``,
-``--deep_supervision``, ``--smoothing``) stay inert, as in JAX.
+``--distributed True`` trains data-parallel over the ranks of a process
+group: ``torchrun --nproc_per_node N -m lmnet_tpu_torch.cli.train
+--distributed True ...`` (NCCL, one card a rank; gloo with ``--device
+cpu``; without a launcher, one process and no mesh). Every rank reads the
+whole data set and builds the same global batches of ``--batch_size``
+rows, takes its own rows of each (``parallel/mesh.py``), and computes the
+loss and the BatchNorm statistics over the global batch, so N ranks train
+as one process does; rank 0 alone writes the CSVs, checkpoints, figures and
+artifacts. ``--n_spatial`` > 1 (sharding H over ranks) is not ported and
+is refused (ROADMAP A8b). The reference's inert flags (``--mixup``,
+``--deep_supervision``, ``--smoothing``) stay inert, as in JAX;
+``--syncBN`` too: the statistics are the global batch's under
+``--distributed`` whatever it says.
 """
 
 from __future__ import annotations
@@ -73,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--weight_decay", type=float, default=1e-4)
     p.add_argument("--syncBN", type=str2bool, default=True,
-                   help="accepted for parity; one device needs no cross-device BN")
+                   help="accepted for parity; under --distributed the BatchNorm "
+                        "statistics are always the global batch's")
     p.add_argument("--smoothing", type=float, default=0.001,
                    help="accepted for parity; the loss uses 0.001, as in JAX")
     p.add_argument("--num_workers", type=int, default=4)
@@ -97,9 +108,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated datasets for the comparative "
                         "--plot figure (reference train.py:57)")
     p.add_argument("--distributed", type=str2bool, default=False,
-                   help="not ported yet (ROADMAP A8); True is refused")
+                   help="split every batch over the ranks of the process group "
+                        "(torchrun or SLURM; one process without a launcher)")
     p.add_argument("--n_spatial", type=int, default=0,
-                   help="not ported yet (ROADMAP A8); > 1 is refused")
+                   help="ranks on the mesh's 'spatial' axis: 0 (auto) and 1 "
+                        "take 1; > 1 (H-sharding) is not ported (ROADMAP A8b)")
     p.add_argument("--k_fold", type=str2bool, default=True)
     p.add_argument("--hd95", action="store_true", default=False,
                    help="report 95th-pct Hausdorff distance on eval/test")
@@ -156,12 +169,9 @@ _NAT_BACKENDS = {"": "flat", "flat": "flat", "pallas": "pallas", "xla": "plain",
 
 def refuse_unported(args) -> None:
     """Raise SystemExit for a flag whose path is not ported yet."""
-    if args.distributed:
-        raise SystemExit("--distributed True is not ported yet (ROADMAP A8: DDP and "
-                         "SyncBatchNorm)")
     if args.n_spatial > 1:
-        raise SystemExit(f"--n_spatial {args.n_spatial} is not ported yet (ROADMAP A8: "
-                         "the spatial mesh axis)")
+        raise SystemExit(f"--n_spatial {args.n_spatial} is not ported yet (ROADMAP A8b: "
+                         "sharding H over ranks)")
 
 
 def _manifest(args, split: str, fold: int) -> str:
@@ -217,8 +227,18 @@ def _write_row(path: str, row, mode: str = "a") -> None:
         csv.writer(fw).writerow(f"{e:.4f}" for e in row)
 
 
+def _device(args) -> torch.device:
+    """``--device``, with a card's index made explicit: each rank's own
+    (``init_distributed_mode`` made it the current one)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def main_single(fold: int, args) -> dict:
     from lmnet_tpu_torch.models import LMNet
+    from lmnet_tpu_torch.parallel.dist_utils import is_dist_avail_and_initialized, is_main_process
     from lmnet_tpu_torch.train import checkpoint as ckpt
     from lmnet_tpu_torch.train.engine import create_train_state
     from lmnet_tpu_torch.train.loop import evaluate, train_one_epoch, visualize
@@ -226,6 +246,17 @@ def main_single(fold: int, args) -> dict:
     set_seed(args.seed)
     datasets = _datasets(args, fold)
     steps_per_epoch = max(len(datasets[0]) // args.batch_size, 1)
+    device = _device(args)
+
+    mesh = None
+    if args.distributed and is_dist_avail_and_initialized():
+        from lmnet_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_spatial=1, device_type=device.type)
+        n_data = mesh.size(0)
+        if args.batch_size % n_data:
+            raise SystemExit(f"--batch_size {args.batch_size} must be divisible by the "
+                             f"{n_data}-rank data axis under --distributed")
 
     model_kw = {}
     if args.filters:
@@ -241,9 +272,13 @@ def main_single(fold: int, args) -> dict:
     )
     state = create_train_state(
         model, (args.batch_size, args.img_size, args.img_size, 3), seed=args.seed,
-        device=args.device, base_lr=args.lr, weight_decay=args.weight_decay,
+        device=device, base_lr=args.lr, weight_decay=args.weight_decay,
         epochs=args.epochs, steps_per_epoch=steps_per_epoch,
     )
+    if mesh is not None:
+        from lmnet_tpu_torch.parallel.mesh import replicate
+
+        state = replicate(mesh, state)
 
     tag = f"{args.model}{args.dataset}"
     rolling = f"{tag}_{fold}_checkpoint"
@@ -268,12 +303,15 @@ def main_single(fold: int, args) -> dict:
 
     if args.visualization:
         state = _require_checkpoint(best_name, "--visualization")
-        _, _, test_loader = _loaders(args, datasets, 0)
-        n = visualize(state, test_loader, os.path.join(args.out_dir, "viz"),
-                      args.num_classes, args.img_size)
-        print(f"wrote {n} visualizations")
+        if is_main_process():
+            _, _, test_loader = _loaders(args, datasets, 0)
+            n = visualize(state, test_loader, os.path.join(args.out_dir, "viz"),
+                          args.num_classes, args.img_size)
+            print(f"wrote {n} visualizations")
         return {}
 
+    if args.export and not is_main_process():
+        return {}
     if args.export:
         from lmnet_tpu_torch.models import structural_reparam
         from lmnet_tpu_torch.serve.export import save_deploy
@@ -296,18 +334,19 @@ def main_single(fold: int, args) -> dict:
                 state.model.state_dict(), test_loader, args.num_classes, args.img_size,
                 nat_backend=_NAT_BACKENDS[args.nat_backend], rc_backend=args.rc_backend,
                 num_heads=args.num_heads or 12, natt_int8=args.natt_int8,
-                task=args.categories, device=args.device, compute_hd95=args.hd95,
+                task=args.categories, device=device, compute_hd95=args.hd95, mesh=mesh,
             )
         else:
             test_loss, m = evaluate(state, test_loader, args.num_classes, args.img_size,
-                                    compute_hd95=args.hd95, task=args.categories)
+                                    compute_hd95=args.hd95, task=args.categories, mesh=mesh)
         names = ["loss", "accuracy", "precision", "recall",
                  "specificity", "dice", "iou", "mean_iou"]
         if args.hd95:
             names.append("hd95")
         row = [test_loss] + [m[k] for k in names[1:]]
         print(" " + " ".join(f"test_{n}:{v:.4f}" for n, v in zip(names, row)))
-        _write_row(os.path.join(args.out_dir, f"{tag}test_rvd_class.csv"), row)
+        if is_main_process():
+            _write_row(os.path.join(args.out_dir, f"{tag}test_rvd_class.csv"), row)
         return dict(zip(names, row))
 
     # resume restores the watermark, so a worse post-resume epoch cannot
@@ -319,10 +358,10 @@ def main_single(fold: int, args) -> dict:
         train_loader, val_loader, _ = _loaders(args, datasets, epoch)
         state, train_loss, tm = train_one_epoch(
             state, train_loader, args.num_classes, args.img_size, task=args.categories,
-            seed=args.seed, epoch=epoch,
+            seed=args.seed, epoch=epoch, mesh=mesh,
         )
         val_loss, vm = evaluate(state, val_loader, args.num_classes, args.img_size,
-                                compute_hd95=args.hd95, task=args.categories)
+                                compute_hd95=args.hd95, task=args.categories, mesh=mesh)
         print(
             " train_loss:{:.4f} train_dice:{:.4f} train_iou:{:.4f} "
             "val_loss:{:.4f} val_dice:{:.4f} val_iou:{:.4f} ({:.1f} img/s)".format(
@@ -336,13 +375,17 @@ def main_single(fold: int, args) -> dict:
             val_loss, vm["accuracy"], vm["precision"], vm["recall"],
             vm["specificity"], vm["dice"], vm["iou"], vm["mean_iou"],
         ]
-        _write_row(os.path.join(args.out_dir, f"{tag}_{fold}.csv"), row)
+        if is_main_process():
+            _write_row(os.path.join(args.out_dir, f"{tag}_{fold}.csv"), row)
+        # every rank calls save_checkpoint: rank 0 writes, the others wait;
+        # vm is the ranks' sum, so every rank takes the same branch
         ckpt.save_checkpoint(args.ckpt_dir, rolling, state, epoch,
                              best_iou=max(best_iou, vm["iou"]))
         if vm["iou"] > best_iou:
             best_iou = vm["iou"]
             ckpt.save_checkpoint(args.ckpt_dir, best_name, state, epoch, best_iou=best_iou)
-            _write_row(os.path.join(args.out_dir, f"{tag}bestresult_{fold}.csv"), row, "w")
+            if is_main_process():
+                _write_row(os.path.join(args.out_dir, f"{tag}bestresult_{fold}.csv"), row, "w")
         last_metrics = {"val_iou": vm["iou"], "val_dice": vm["dice"],
                         "best_iou": best_iou, "epoch": epoch}
     return last_metrics
@@ -425,20 +468,33 @@ def plot_curves(args, fold: int = 0) -> None:
 
 
 def main(argv=None) -> None:
+    from lmnet_tpu_torch.parallel import dist_utils
+
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if args.plot:
-        plot_curves(args)
+        if dist_utils.is_main_process():
+            plot_curves(args)
         return
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; pass --device cpu "
                          "to run on the CPU")
-    one_fold = args.test or args.visualization or args.export
-    folds = range(5) if (args.k_fold and not one_fold) else [0]
-    for fold in folds:
-        print(f"========fold {fold} train begin========")
-        main_single(fold, args)
-        print(f"========fold {fold} train end========")
+    # the process group from torchrun's or SLURM's environment, before any
+    # device work (JAX's and the reference's order). A group made here is
+    # destroyed here.
+    owned = not dist_utils.is_dist_avail_and_initialized()
+    dist_utils.init_distributed_mode(args.device)
+    owned = owned and dist_utils.is_dist_avail_and_initialized()
+    try:
+        one_fold = args.test or args.visualization or args.export
+        folds = range(5) if (args.k_fold and not one_fold) else [0]
+        for fold in folds:
+            print(f"========fold {fold} train begin========")
+            main_single(fold, args)
+            print(f"========fold {fold} train end========")
+    finally:
+        if owned:
+            dist_utils.cleanup()
 
 
 if __name__ == "__main__":

@@ -180,8 +180,21 @@ class SyntheticDataset:
     def __len__(self):
         return self.n
 
+    def shard(self, rank: int, world: int) -> "SyntheticDataset":
+        """Every ``world``-th image from ``rank`` on (JAX's per-host shard)."""
+        if world <= 1:
+            return self
+        out = SyntheticDataset((self.n - rank + world - 1) // world, self.img_size, self.mode,
+                               self.seed)
+        out._offset = rank
+        out._stride = world
+        return out
+
+    _offset = 0
+    _stride = 1
+
     def __getitem__(self, idx: int):
-        rng = np.random.RandomState(self.seed + idx)
+        rng = np.random.RandomState(self.seed + self._offset + idx * self._stride)
         s = self.load_size if self.mode == "train" else self.img_size
         img = rng.randint(0, 256, (s, s, 3), dtype=np.uint8)
         yy, xx = np.mgrid[:s, :s]

@@ -43,6 +43,7 @@ from lmnet_tpu_torch.ops.nat_flat import nat_flat
 from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
 from lmnet_tpu_torch.ops.rc_train import rc_branch_act
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
+from lmnet_tpu_torch.parallel.batch import dropout_rows, moments
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -153,7 +154,9 @@ class BatchNorm(nn.Module):
     ``running_var`` (no ``num_batches_tracked``). In train mode it
     normalises with the batch statistics and moves the running ones toward
     them with torch momentum 0.1, keeping JAX's *biased* variance (torch's
-    ``F.batch_norm`` would store the unbiased one)."""
+    ``F.batch_norm`` would store the unbiased one). Inside a data-parallel
+    step the statistics are the global batch's (``parallel/batch.py``), as
+    under JAX's mesh, so every rank's running statistics come out equal."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -172,7 +175,7 @@ class BatchNorm(nn.Module):
     def train_forward(self, x):
         """Normalise with the batch statistics; returns (y, mean, var) and
         leaves the running statistics alone."""
-        mean, var = _stats(x, (0, 1, 2))
+        mean, var = moments(x.float(), (0, 1, 2))
         return self.normalize(x, mean, var), mean, var
 
     def normalize(self, x, mean, var):
@@ -205,10 +208,13 @@ class LayerNorm(nn.Module):
 def dropout_keep(shape, p: float, generator: torch.Generator | None,
                  device) -> torch.Tensor:
     """A dropout keep mask of ``shape``: True with probability 1 - p, drawn
-    from ``generator``, which must live on ``device``."""
+    from ``generator``, which must live on ``device``. Inside a
+    data-parallel step, this rank's rows of the global batch's mask
+    (``parallel/batch.py::dropout_rows``)."""
     if generator is None:
         raise ValueError("dropout needs a torch.Generator (deterministic=False)")
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    return dropout_rows(lambda s: torch.rand(s, generator=generator, device=device) < 1.0 - p,
+                        shape)
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
@@ -430,6 +436,11 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x):
         return self.patch_embeddings(x)
+
+
+# JAX's name for the block (its parameter is ``proj``; the state-dict name
+# here stays the reference's ``patch_embeddings``)
+OverlapPatchEmbed = PatchEmbed
 
 
 class GlobalAttention(nn.Module):

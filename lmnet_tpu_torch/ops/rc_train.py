@@ -17,7 +17,13 @@ the B5 kernel ``csrc/rc_dw_gelu.cu`` (``ops/rc_flat.py::dw_gelu_flat``).
 The backward saves only the primals and differentiates the plain branch
 graph, ``rc_branch_act_plain``, as JAX's ``_rc_bwd`` does; mu and var feed
 only the running-statistics update and get no gradient. On CPU tensors
-``rc_branch_act`` is the plain graph itself. Kernels are OIHW depthwise:
+``rc_branch_act`` is the plain graph itself.
+
+Inside a data-parallel step (``parallel/batch.py::global_batch``) the
+statistics are the global batch's: the forward all-reduces B6's (4, 2, C)
+sums before the fold, and the plain graph, which the backward
+differentiates, takes its moments through ``parallel/batch.py::moments``
+(its sums all-reduced, with a gradient), as JAX's mesh gives both. Kernels are OIHW depthwise:
 k5 (C, 1, 5, 5), k3 (C, 1, 3, 3), kv (C, 1, 3, 1), kh (C, 1, 1, 3).
 """
 
@@ -40,6 +46,7 @@ from lmnet_tpu_torch.ops.rc_flat import (
     dw_gelu_flat,
 )
 from lmnet_tpu_torch.ops.reparam import fuse_reparam_branches
+from lmnet_tpu_torch.parallel.batch import global_count, global_sum, moments
 
 BRANCHES = ("large", "square", "ver", "hor")  # the reference's sum order
 _SHAPES = ((5, 5), (3, 3), (3, 1), (1, 3))
@@ -195,8 +202,7 @@ def rc_branch_act_plain(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float 
     z, mus, vs = None, [], []
     for i, y in enumerate(_branch_outputs(e_flat, (k5, k3, kv, kh), C, e_flat.dtype)):
         yf = y.float()
-        mean = yf.mean(dim=(0, 2, 3))
-        var = torch.clamp(yf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+        mean, var = moments(yf, (0, 2, 3))
         bn = ((yf - mean[:, None, None]) * (torch.rsqrt(var + eps) * gamma[i])[:, None, None]
               + beta[i][:, None, None])
         z = bn if z is None else z + bn
@@ -208,9 +214,11 @@ def rc_branch_act_plain(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float 
 
 
 def _fused_forward(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float):
-    """Statistics kernel -> fold -> B5 kernel."""
-    B, H, W = _check_shapes(e_flat, (k5, k3, kv, kh), C)
-    mu, var = _fold_stats(rc_branch_stats(e_flat, k5, k3, kv, kh, C), B * H * W)
+    """Statistics kernel (its sums over the global batch in a data-parallel
+    step) -> fold -> B5 kernel."""
+    _check_shapes(e_flat, (k5, k3, kv, kh), C)
+    stats = global_sum(rc_branch_stats(e_flat, k5, k3, kv, kh, C))
+    mu, var = _fold_stats(stats, global_count(e_flat) // C)
     branches = {
         name: dict(kernel=k.float(), scale=gamma[i], bias=beta[i], mean=mu[i], var=var[i])
         for i, (name, k) in enumerate(zip(BRANCHES, (k5, k3, kv, kh)))

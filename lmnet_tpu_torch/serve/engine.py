@@ -20,7 +20,11 @@ JAX's deploy options are here too: ``natt_int8`` (int8 qkv and fc1 products
 off a static-scale int8 LayerNorm), ``ln_fold`` (the LayerNorm affines folded
 into qkv and fc1) and ``skip_compose`` (convl/convm/convs composed into the
 skip blocks' fuse conv). Unlike JAX, ``natt_int8`` with ``ln_fold`` raises
-(JAX drops ``ln_fold``). Left out here: the device mesh.
+(JAX drops ``ln_fold``). ``serving_evaluate(mesh=...)`` splits each batch
+over the mesh's data axis and sums the results over the ranks, as
+``train.loop.evaluate``; each rank serves whole images, so B1 serves there
+too (JAX takes its 'xla' NAT under a mesh, because a Pallas call does not
+partition).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from lmnet_tpu_torch.data.augment import eval_pipeline
-from lmnet_tpu_torch.losses.losses import cross_entropy_loss
+from lmnet_tpu_torch.losses.losses import cross_entropy_terms
 from lmnet_tpu_torch.metrics.confusion import (
     ConfusionAccumulator,
     confusion_matrix,
@@ -52,6 +56,7 @@ from lmnet_tpu_torch.models.lm_net import structural_reparam
 from lmnet_tpu_torch.ops.rc_flat import fold_rc_flat_weights, fused_rc_block
 from lmnet_tpu_torch.ops.rc_kernel import fold_rc_weights, fused_reparam_conv
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
+from lmnet_tpu_torch.parallel.mesh import data_group, eval_totals, shard_rows
 
 RC_BACKENDS = ("xla", "flat", "pallas")
 
@@ -437,6 +442,7 @@ def serving_evaluate(
     task: str = "binary",
     device: torch.device | str = "cuda",
     compute_hd95: bool = False,
+    mesh=None,
 ) -> tuple[float, dict[str, float]]:
     """Evaluate a train-mode state dict through the serving path: reparam
     once, move the deploy state to ``device`` (the card unless the caller
@@ -446,36 +452,71 @@ def serving_evaluate(
     rest. ``compute_hd95`` adds the mean HD95 of the class-1 masks, on the
     host from the served predictions, as ``train.loop.evaluate``.
 
+    ``mesh``: each batch split over the data axis, each rank serving its
+    rows (with the NAT backend asked for: B1 by default); the matrix, each
+    batch's CE numerator and denominator and the HD95 sums are summed over
+    the ranks in one float64 all-reduce (``eval_totals``), so the result is
+    one process's. An 'auto' backend is timed on every rank and rank 0's
+    pick is broadcast.
+
     Returns (summed per-batch CE loss, derived metrics), as the JAX engine.
     """
     device = torch.device(device)
     deploy = {k: v.to(device) for k, v in structural_reparam(state).items()}
     cm = ConfusionAccumulator.init(num_classes, device)
-    total = torch.zeros((), dtype=torch.float32, device=device)
-    hd_vals = []
+    terms = []  # each batch's (CE numerator, denominator)
+    hd_sum, hd_cnt = 0.0, 0
     with torch.inference_mode():
         for images, masks in loader:
+            rows = (slice(0, images.shape[0]) if mesh is None
+                    else shard_rows(mesh, images.shape[0]))
+            if rows.start == rows.stop:  # a ragged tail left this rank no row
+                if "auto" in (rc_backend, nat_backend):
+                    raise ValueError("an 'auto' backend is timed on every rank's rows of the "
+                                     "first batch, which leaves this rank none")
+                terms.append(torch.zeros(2, device=device))
+                continue
             x, y = eval_pipeline(
-                torch.from_numpy(images).to(device), torch.from_numpy(masks).to(device),
+                torch.from_numpy(images[rows]).to(device), torch.from_numpy(masks[rows]).to(device),
                 out_size=img_size,
             )
             x = x.to(torch.bfloat16)
             if "auto" in (rc_backend, nat_backend):
-                rc_backend, nat_backend = _resolve_auto(deploy, x, num_heads, rc_backend,
-                                                        nat_backend, natt_int8)
+                picked = _resolve_auto(deploy, x, num_heads, rc_backend, nat_backend, natt_int8)
+                if mesh is not None:
+                    picked = _rank0_pick(mesh, picked, device)
+                rc_backend, nat_backend = picked
             logits = deploy_forward(
                 deploy, x, num_heads=num_heads,
                 nat_backend=nat_backend, rc_backend=rc_backend, natt_int8=natt_int8,
             )
-            total += cross_entropy_loss(logits, y, (1.0, 4.0), 0.001)
+            terms.append(torch.stack(cross_entropy_terms(logits, y, (1.0, 4.0), 0.001)))
             preds = logits.argmax(dim=-1)
             cm += confusion_matrix(preds, y, num_classes)
             if compute_hd95:
                 for p, t in zip(preds.cpu().numpy(), y.cpu().numpy()):
                     v = hausdorff_distance_95(p == 1, t == 1)
                     if not np.isnan(v):
-                        hd_vals.append(v)
+                        hd_sum += v
+                        hd_cnt += 1
+    cm, total_loss, hd_sum, hd_cnt = eval_totals(
+        cm, terms, hd_sum, hd_cnt, data_group(mesh) if mesh is not None else None)
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}
     if compute_hd95:
-        metrics["hd95"] = float(np.mean(hd_vals)) if hd_vals else float("nan")
-    return float(total), metrics
+        metrics["hd95"] = hd_sum / hd_cnt if hd_cnt else float("nan")
+    return total_loss, metrics
+
+
+_NAT_NAMES = ("flat", "pallas", "plain")
+
+
+def _rank0_pick(mesh, picked: tuple, device) -> tuple:
+    """Rank 0's (rc, nat) backend pair on every rank of ``mesh``'s data
+    axis (one broadcast of the two names' indices)."""
+    import torch.distributed as dist
+
+    rc, nat_b = picked
+    idx = torch.tensor([RC_BACKENDS.index(rc), _NAT_NAMES.index(nat_b)], device=device)
+    group = data_group(mesh)
+    dist.broadcast(idx, dist.get_global_rank(group, 0), group=group)
+    return RC_BACKENDS[int(idx[0])], _NAT_NAMES[int(idx[1])]

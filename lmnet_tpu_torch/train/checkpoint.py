@@ -14,6 +14,12 @@ learning rate is a pure function of ``step`` (the per-epoch cosine), so
 restoring the step restores it. Each checkpoint is one file named as JAX
 names its directory; a save writes a temporary file and renames it, so a
 checkpoint on disk is always whole.
+
+Under a process group (``parallel.dist_utils``) every rank calls
+``save_checkpoint``: rank 0 writes (the ranks' states are equal), then all
+wait at a barrier, so a rank that loads next finds the file whole. Every
+rank loads for itself (JAX's CLI gates its writes on ``is_main_process``,
+``lmnet_tpu/cli/train.py:237, 377, 413, 431``).
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 
+from lmnet_tpu_torch.parallel.dist_utils import get_world_size, is_main_process
 from lmnet_tpu_torch.train.engine import TrainState
 
 
@@ -37,7 +45,15 @@ def save_checkpoint(
     best_iou: float = 0.0,
 ) -> None:
     """Save a rolling checkpoint (overwrites the previous one of this name),
-    atomically."""
+    atomically; under a process group, rank 0 writes and every rank waits
+    for it."""
+    if is_main_process():
+        _write(ckpt_dir, name, state, epoch, best_iou)
+    if get_world_size() > 1:
+        dist.barrier()
+
+
+def _write(ckpt_dir: str, name: str, state: TrainState, epoch: int, best_iou: float) -> None:
     path = _path(ckpt_dir, name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {

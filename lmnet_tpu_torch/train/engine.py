@@ -12,18 +12,27 @@ Counterpart of ``lmnet_tpu/train/engine.py``:
 
 The per-step path makes no host sync: the loss and the confusion matrix stay
 on the device, and the learning rate comes from the host-side step count.
+
+``train_step(mesh=...)`` is the data-parallel step, JAX's step on a batch
+sharded over the mesh's 'data' axis: this rank's rows run the forward and
+backward inside ``parallel/batch.py::global_batch`` (the loss and every
+BatchNorm statistic over the global batch), then the gradients' mean over
+the ranks (one all-reduce) goes into AdamW, which every rank runs alike.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Iterable, Sequence
 
 import torch
 
-from lmnet_tpu_torch.losses.losses import cross_entropy_loss, dice_loss
+from lmnet_tpu_torch.losses.losses import cross_entropy_loss, cross_entropy_terms, dice_loss
 from lmnet_tpu_torch.metrics.confusion import confusion_matrix
+from lmnet_tpu_torch.parallel.batch import all_reduce_grads, global_batch
+from lmnet_tpu_torch.parallel.mesh import data_group, shard_rows
 
 
 def cosine_epoch_schedule(
@@ -111,22 +120,44 @@ def train_step(
     ce_weight: tuple | None = (1.0, 4.0),
     dice_weight: tuple | None = (1.0, 4.0),
     label_smoothing: float = 0.001,
+    mesh=None,
+    global_rows: int | None = None,
 ):
     """One optimisation step on NHWC float ``images`` and (B, H, W) integer
     ``labels``. Updates ``state`` in place; returns (state, loss, cm) with
     the loss a detached device scalar and ``cm`` plus the confusion matrix
-    of this batch's train-mode predictions."""
+    of this batch's train-mode predictions.
+
+    ``mesh`` (``parallel.make_mesh``): ``images`` and ``labels`` are this
+    rank's rows (``parallel/mesh.py::shard_rows``) of a global batch of
+    ``global_rows`` rows (default: this rank's rows times the data axis).
+    The loss returned is the global batch's, equal on every rank; ``cm``
+    gains this rank's rows only (``train_one_epoch`` sums it over the
+    ranks once an epoch)."""
     ce_weight = _weights(ce_weight, num_classes)
     dice_weight = _weights(dice_weight, num_classes)
     lr = state.schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
-    logits = state.model(images, train=True, generator=state.generator)
-    loss = cross_entropy_loss(logits, labels, ce_weight, label_smoothing) + dice_loss(
-        logits, labels, dice_weight
-    )
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    context, group = contextlib.nullcontext(), None
+    if mesh is not None:
+        n = images.shape[0] * mesh.size(0) if global_rows is None else global_rows
+        rows = shard_rows(mesh, n)
+        if images.shape[0] != rows.stop - rows.start or images.shape[0] == 0:
+            raise ValueError(f"a rank's batch of {images.shape[0]} rows is not its share "
+                             f"{rows} of a global batch of {n} over {mesh.size(0)} ranks (each "
+                             "rank needs at least one row)")
+        group = data_group(mesh)
+        context = global_batch(group, n, rows.start)
+    with context:
+        logits = state.model(images, train=True, generator=state.generator)
+        loss = cross_entropy_loss(logits, labels, ce_weight, label_smoothing) + dice_loss(
+            logits, labels, dice_weight
+        )
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    if group is not None:
+        all_reduce_grads(state.model.parameters(), group)
     state.optimizer.step()
     state.step += 1
     with torch.no_grad():
@@ -145,10 +176,13 @@ def eval_step(
     label_smoothing: float = 0.001,
 ):
     """One eval step (CE loss only, as the reference's evaluate). Returns
-    (loss, updated confusion matrix, argmax predictions), all on the
-    device."""
+    (the batch's CE terms, updated confusion matrix, argmax predictions),
+    all on the device. The terms are the (numerator, denominator) of
+    ``cross_entropy_terms`` as one (2,) tensor: the batch's loss is their
+    ratio, and ranks holding rows of one batch sum them before dividing
+    (``parallel/mesh.py::eval_totals``)."""
     ce_weight = _weights(ce_weight, num_classes)
     logits = state.model(images, train=False)
-    loss = cross_entropy_loss(logits, labels, ce_weight, label_smoothing)
+    terms = torch.stack(cross_entropy_terms(logits, labels, ce_weight, label_smoothing))
     preds = logits.argmax(dim=-1)
-    return loss, cm + confusion_matrix(preds, labels, num_classes), preds
+    return terms, cm + confusion_matrix(preds, labels, num_classes), preds

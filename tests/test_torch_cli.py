@@ -304,7 +304,7 @@ def test_serving_evaluate_reports_hd95():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed", "True"], "A8"), (["--n_spatial", "2"], "A8"),
+    (["--distributed", "True", "--n_spatial", "2"], "A8"), (["--n_spatial", "2"], "A8"),
 ])
 def test_unported_flags_are_refused(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):
