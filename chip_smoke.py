@@ -188,6 +188,24 @@ Phases, each printing a line, any failure raising (exit code != 0):
      ranks (gloo's all-reduces go through the host) and the all-reduces a
      step. B1's, B2's, B5's and B6's ``launches_by_path`` gain 'ddp' (the
      two ranks' own counters summed) and B1's and B2's 'ddp_cli'.
+ 21. the mesh's 'spatial' axis (lmnet_tpu_torch/parallel/spatial.py): B1
+     and B2 against their plain versions at the four NAT slabs a rank gives
+     them at 512^2 (B=4; H = 257, 129, 65, 33, W.C = 6144), bf16 and
+     float32, each plan 'vec', the bf16 calls timed beside their byte
+     bounds; ``--nproc_per_node 2 chip_smoke.py --spatial-rank DIR``: two
+     gloo ranks on the card on a (1 x 2) mesh, each running its 256 rows
+     of a bf16 512^2 B=4 train_step of the default model ('flat' NAT,
+     'xla' ReparamConv, rc_remat, dropout on; B1 4 and B2 4 a rank), held
+     against the one-process step by the bf16 rule; a float32 64^2 B=2
+     step by phase 20's fp32 rule; the ranks' parameters bitwise equal;
+     evaluate (float32, HD95 on the gathered maps) and serving_evaluate
+     (bf16, B1 on each slab) over 5 images in batches of 2, 2, 1 by the
+     eval and serving rules; ms a step of one process and of the two
+     ranks, and a step's halo exchanges and all-reduces; then
+     ``parallel.dryrun.dryrun_multichip(4, device='cuda')``: four gloo
+     ranks on the card, (2 x 2). B1's and B2's ``launches_by_path`` gain
+     'spatial' (the two ranks' counters summed) and their entries
+     ``ms_by_slab``.
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -2682,12 +2700,13 @@ def _ddp_model(dev, dtype):
     return _train_model(dev, dtype, "flat", "fused", seed=DDP_SEED)
 
 
-def _ddp_step(model, x, y, mesh=None):
+def _ddp_step(model, x, y, mesh=None, spatial=False):
     """One train_step (dropout on, the generator seeded alike everywhere):
     (loss, {name: grad}, state dict after the step, the step's confusion
-    matrix, summed over the ranks under a mesh), on the CPU."""
+    matrix, summed over the ranks under a mesh), on the CPU. ``spatial``:
+    each rank's block of H too (the mesh's 'spatial' axis)."""
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
-    from lmnet_tpu_torch.parallel.mesh import data_group, replicate, shard_rows
+    from lmnet_tpu_torch.parallel.mesh import h_rows, replicate, shard_rows, sum_group
     from lmnet_tpu_torch.train import create_train_state, train_step
 
     state = create_train_state(model, tuple(x.shape), seed=9, device=x.device)
@@ -2697,8 +2716,10 @@ def _ddp_step(model, x, y, mesh=None):
     else:
         replicate(mesh, state)
         rows = shard_rows(mesh, len(x))
-        state, loss, cm = train_step(state, x[rows], y[rows], cm, mesh=mesh, global_rows=len(x))
-        torch.distributed.all_reduce(cm, group=data_group(mesh))
+        hs = h_rows(mesh, x.shape[1]) if spatial else slice(None)
+        state, loss, cm = train_step(state, x[rows][:, hs], y[rows][:, hs], cm, mesh=mesh,
+                                     global_rows=len(x), spatial=spatial)
+        torch.distributed.all_reduce(cm, group=sum_group(mesh, spatial))
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     return (float(loss), grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
             cm.cpu())
@@ -2792,7 +2813,7 @@ def cli_rank_main(argv) -> int:
     return 0
 
 
-def _torchrun(nproc: int, args, timeout: int = 600) -> str:
+def _torchrun(nproc: int, args, timeout: int = 600, phase: int = 20) -> str:
     """``python -m torch.distributed.run --standalone --nproc_per_node
     nproc chip_smoke.py args``; its output, each line printed; raises if it
     fails."""
@@ -2800,13 +2821,13 @@ def _torchrun(nproc: int, args, timeout: int = 600) -> str:
            "--nproc_per_node", str(nproc), __file__, *args]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
-        print(f"phase 20: torchrun| {line}")
+        print(f"phase {phase}: torchrun| {line}")
     check(proc.returncode == 0, f"torchrun {' '.join(args[:1])} exited {proc.returncode}: "
                                 f"{proc.stderr[-3000:]}")
     return proc.stdout
 
 
-def _bf16_rule(label, got, one, ref) -> float:
+def _bf16_rule(label, got, one, ref, phase: int = 20) -> float:
     """The bf16 rule of "a kernel on the train step" (PERF.md section 2):
     the 2-rank step ``got`` and the one-process step ``one``, each (loss,
     gradients, running statistics, confusion matrix), held to the float32
@@ -2830,7 +2851,7 @@ def _bf16_rule(label, got, one, ref) -> float:
         2 * float((co - cr).abs().sum()) + 2e-4 * float(cr.sum()))
     worst = max(ratios, key=ratios.get)
     ok = all(np.isfinite(v) and v <= 1.0 for v in ratios.values())
-    print(f"phase 20: {label}: loss 2 ranks {lg:.6f}, one process {lo:.6f}, fp32 {lr:.6f}; "
+    print(f"phase {phase}: {label}: loss 2 ranks {lg:.6f}, one process {lo:.6f}, fp32 {lr:.6f}; "
           f"{len(ratios)} checks (the loss, {len(_grad_blocks(gr))} gradient blocks, "
           f"{len(_stat_blocks(sr))} BatchNorms' running statistics, the confusion matrix): "
           f"worst |2 ranks - fp32| / (2 |one - fp32| + slack) = {ratios[worst]:.3e} at {worst} "
@@ -3065,6 +3086,252 @@ def phase_ddp(dev, card_line) -> dict:
             "one_ms": one_ms, "two_ms": two_ms, "collectives": coll, "bf16_worst": b16}
 
 
+# phase 21: the mesh's 'spatial' axis (lmnet_tpu_torch/parallel/spatial.py)
+SPATIAL_IMG = 512  # JAX's CLI turns the axis on at --img_size >= 512
+SPATIAL_BATCH = 4
+SPATIAL_SEED = 21  # the seeded weights of phase 21's steps
+SPATIAL_EVAL_IMAGES = 5  # batches of 2, 2, 1
+# (H, W, C) of the NAT slabs each rank of the (1 x 2) mesh gives B1 and B2 at
+# 512^2: its 256 / 128 / 64 / 32 rows and one row of its neighbour; W.C = 6144
+SPATIAL_SLABS = [(257, 512, 12), (129, 256, 24), (65, 128, 48), (33, 64, 96)]
+
+
+def _spatial_model(dev, dtype):
+    """Phase 21's model: the full-width default, seeded: rc_remat=True,
+    'flat' NAT (B1, B2), 'xla' ReparamConv, dropout on."""
+    return _train_model(dev, dtype, "flat", "auto", seed=SPATIAL_SEED)
+
+
+def _spatial_evals(dev, mesh=None):
+    """evaluate (float32, HD95) and serving_evaluate (bf16, B1) of the seeded
+    float32 model over SPATIAL_EVAL_IMAGES 512^2 images in batches of 2, 2,
+    1: (loss, metrics) for each, H over the mesh's 'spatial' axis."""
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.serve import serving_evaluate
+    from lmnet_tpu_torch.train import create_train_state, evaluate
+
+    def loader():
+        return make_loader(SyntheticDataset(SPATIAL_EVAL_IMAGES, SPATIAL_IMG, "val", seed=12), 2)
+
+    state = create_train_state(_spatial_model(dev, torch.float32),
+                               (2, SPATIAL_IMG, SPATIAL_IMG, 3), seed=0, device=dev)
+    ev = evaluate(state, loader(), img_size=SPATIAL_IMG, compute_hd95=True, mesh=mesh,
+                  spatial=True)
+    sv = serving_evaluate(state.model.state_dict(), loader(), 2, SPATIAL_IMG, device=dev,
+                          mesh=mesh, spatial=True)
+    return ev, sv
+
+
+def spatial_rank_main(out_dir, device_type: str = "cuda") -> int:
+    """One rank of phase 21, under torchrun: two ranks share the one card over
+    gloo on a (1 x 2) mesh, each holding 256 rows of every 512^2 image. Runs
+    the sharded steps, evaluate and serving_evaluate, times the bf16 step,
+    and saves what it got, its B1 and B2 launches and its collectives to
+    ``out_dir/rank{r}.pt``."""
+    from pathlib import Path
+
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.parallel import batch as pbatch
+    from lmnet_tpu_torch.parallel import dist_utils
+    from lmnet_tpu_torch.parallel.mesh import h_rows, make_mesh
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_utils.init_distributed_mode(device_type, backend="gloo")
+    rank = dist_utils.get_rank()
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device("cpu"))
+    mesh = make_mesh(n_spatial=2, device_type=device_type)
+    got = {"rank": rank, "mesh": tuple(mesh.shape), "backend": torch.distributed.get_backend()}
+    _zero_counters()
+    x, y = _batch(SPATIAL_BATCH, SPATIAL_IMG, "val", 4, dev)
+    before = dict(pbatch.COUNTS)
+    got["bf16"] = _ddp_step(_spatial_model(dev, torch.bfloat16), x, y, mesh, spatial=True)
+    _sync(dev)
+    got["collectives"] = {k: pbatch.COUNTS[k] - before[k] for k in before}
+    got["step_launches"] = _read_counters()
+    x32, y32 = _batch(2, 64, "val", 3, dev)
+    got["fp32"] = _ddp_step(_spatial_model(dev, torch.float32), x32, y32, mesh, spatial=True)
+    got["evals"] = _spatial_evals(dev, mesh)
+    _sync(dev)
+    got["launches"] = _read_counters()
+
+    # ms a step in two turns: 3 steps after a warm-up, CUDA events
+    state = create_train_state(_spatial_model(dev, torch.bfloat16),
+                               (SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3), seed=0, device=dev)
+    hs = h_rows(mesh, SPATIAL_IMG)
+    xs, ys = x[:, hs].contiguous(), y[:, hs].contiguous()
+    cm = ConfusionAccumulator.init(2, dev)
+    got["ms"] = [_steps_ms(lambda: train_step(state, xs, ys, cm, mesh=mesh, spatial=True), 3,
+                           dev) for _ in range(2)]
+    print(f"phase 21: rank {rank}| {got['backend']} mesh {got['mesh']}, B1/B2 launched "
+          f"{got['launches']['nat_fwd']}/{got['launches']['nat_bwd']} (bf16 step "
+          f"{got['step_launches']['nat_fwd']}/{got['step_launches']['nat_bwd']}), collectives "
+          f"in the bf16 step {json.dumps(got['collectives'])}, ms a step {got['ms']}", flush=True)
+    torch.save(got, Path(out_dir) / f"rank{rank}.pt")
+    dist_utils.cleanup()
+    return 0
+
+
+def _spatial_slab_kernels(dev, card_line) -> dict:
+    """B1 and B2 against their plain versions at the four slab shapes of a
+    rank, bf16 and float32, each with its plan's variant (which must be
+    'vec'); the bf16 calls timed eagerly beside their byte bounds."""
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd, nat_plan
+
+    out = {"nat_fwd": [], "nat_bwd": []}
+    for i, (H, W, C) in enumerate(SPATIAL_SLABS):
+        B, hd, scale = SPATIAL_BATCH, C // HEADS, float(C // HEADS) ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, rpb = nat_inputs(B, H, W, C, dtype, 500 + i, dev)
+            g = torch.randn(B, H, W * C, generator=torch.Generator().manual_seed(600 + i))
+            g = g.to(dev, dtype)
+            plans = {kind: nat_plan(B, H, W, HEADS, hd, dtype, kind)["variant"]
+                     for kind in ("fwd", "bwd")}
+            e_f = check_fwd(f"phase 21: [{plans['fwd']}]", nat_flat(q, k, v, rpb, HEADS, C, W),
+                            q, k, v, rpb, B, H, W, C)
+            e_b = check_bwd(f"phase 21: [{plans['bwd']}]",
+                            nat_flat_bwd(q, k, v, rpb, g, HEADS, C, W, scale),
+                            q, k, v, rpb, g, B, H, W, C, scale)
+            check(set(plans.values()) == {"vec"},
+                  f"B1/B2 at the slab H={H} W={W} C={C} took {plans}")
+            if dtype != torch.bfloat16:
+                continue
+            es = q.element_size()
+            for name, fn, nbytes, err in (
+                    ("nat_fwd", lambda: nat_flat(q, k, v, rpb, HEADS, C, W),
+                     4 * q.numel() * es, e_f),
+                    ("nat_bwd", lambda: nat_flat_bwd(q, k, v, rpb, g, HEADS, C, W, scale),
+                     7 * q.numel() * es, e_b)):
+                ms = cuda_ms(fn, iters=10)
+                out[name].append({"H": H, "W": W, "C": C, "B": B, "variant": plans[name[-3:]],
+                                  "ms": ms, "bound_ms": nbytes / HBM_RATE * 1e3,
+                                  "max_abs_err": err})
+                print(f"phase 21: {name} slab B={B} H={H} W={W} C={C} bf16: {ms:.4f} ms eager, "
+                      f"bound {nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB) "
+                      f"[{card_line}]")
+    return out
+
+
+def phase_spatial(dev, card_line) -> dict:
+    """Phase 21; returns the two ranks' B1 and B2 launches (summed), B1's and
+    B2's slab checks and times, and the phase's numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    slabs = _spatial_slab_kernels(dev, card_line)
+
+    x, y = _batch(SPATIAL_BATCH, SPATIAL_IMG, "val", 4, dev)
+    state = create_train_state(_spatial_model(dev, torch.bfloat16),
+                               (SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3), seed=0, device=dev)
+    cm = ConfusionAccumulator.init(2, dev)
+
+    def time_one():
+        return _steps_ms(lambda: train_step(state, x, y, cm), 3, dev)
+
+    one_ms = [time_one()]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_", dir=build) as tmp:
+        t0 = time.perf_counter()
+        _torchrun(2, ["--spatial-rank", tmp, dev.type], phase=21)
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    one_ms.append(time_one())
+    del state
+
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"]
+          and [r["mesh"] for r in ranks] == [(1, 2), (1, 2)],
+          "the ranks are not a gloo (1 x 2) mesh")
+    for r in ranks:
+        check(r["step_launches"]["nat_fwd"] == 4 and r["step_launches"]["nat_bwd"] == 4,
+              f"rank {r['rank']}'s bf16 step launched {r['step_launches']}")
+        check(r["collectives"] == ranks[0]["collectives"] and r["collectives"]["halo"] > 0,
+              f"the ranks' collectives differ: {[q['collectives'] for q in ranks]}")
+
+    # bf16 512^2, B=4 (256 rows a rank): against one process by the bf16 rule
+    one_bf16 = _ddp_step(_spatial_model(dev, torch.bfloat16), x, y)
+    ref = _spatial_model(dev, torch.float32)
+    ref.load_state_dict(_spatial_model(dev, torch.bfloat16).state_dict())
+    fp32 = _ddp_step(ref, x, y)
+    del ref
+
+    def stats_only(step):
+        return step[0], step[1], {k: v for k, v in step[2].items() if "running" in k}, step[3]
+
+    b16 = _bf16_rule(f"bf16 {SPATIAL_IMG}^2 B={SPATIAL_BATCH} step, 2 ranks x "
+                     f"{SPATIAL_IMG // 2} rows against one process", stats_only(ranks[0]["bf16"]),
+                     stats_only(one_bf16), stats_only(fp32), phase=21)
+    del one_bf16, fp32
+    same = all(torch.equal(ranks[0][k][2][n], ranks[1][k][2][n])
+               for k in ("bf16", "fp32") for n in ranks[0][k][2])
+    print(f"phase 21: both ranks' parameters and running statistics bitwise equal after the bf16 "
+          f"and fp32 steps: {same} {'ok' if same else 'FAIL'}")
+    check(same, "the ranks' parameters differ after the sharded step")
+
+    # fp32 64^2, B=2 (32 rows a rank): loss rel 1e-5, each gradient ||d|| <=
+    # 1e-3 ||ref|| + 1e-5 max||g||, running statistics rtol 1e-4 / atol 1e-5 max
+    x32, y32 = _batch(2, 64, "val", 3, dev)
+    lo, go, so, co = _ddp_step(_spatial_model(dev, torch.float32), x32, y32)
+    lg, gg, sg, cg = ranks[0]["fp32"]
+    big = max(v.norm().item() for v in go.values())
+    worst_g = max((gg[k] - go[k]).norm().item() / (1e-3 * go[k].norm().item() + 1e-5 * big)
+                  for k in go)
+    worst_s = max(float(((sg[k] - so[k]).abs()
+                         / (1e-4 * so[k].abs() + 1e-5 * so[k].abs().max().item())).max())
+                  for k in so if "running" in k)
+    ok = (abs(lg - lo) <= 1e-5 * abs(lo) and worst_g <= 1.0 and worst_s <= 1.0
+          and torch.equal(cg, co))
+    print(f"phase 21: fp32 64^2 B=2 step, 2 ranks x 32 rows against one process: loss {lg:.7f} "
+          f"vs {lo:.7f} (tol rel 1e-5); {len(go)} gradients worst ||2r-1p|| / (1e-3 ||1p|| + "
+          f"1e-5 max||g||) = {worst_g:.3e}; running statistics worst {worst_s:.3e} (tol 1); "
+          f"confusion matrix equal {torch.equal(cg, co)} {'ok' if ok else 'FAIL'}")
+    check(ok, "the fp32 sharded step disagrees with one process")
+
+    # evaluate (fp32, HD95) and serving_evaluate (bf16, B1 on each slab)
+    (el, em), (sl, sm) = _spatial_evals(dev)
+    (gel, gem), (gsl, gsm) = ranks[0]["evals"]
+    pixels = SPATIAL_EVAL_IMAGES * SPATIAL_IMG * SPATIAL_IMG
+    ev_flips = abs(gem["accuracy"] - em["accuracy"]) * pixels
+    sv_flips = abs(gsm["accuracy"] - sm["accuracy"]) * pixels
+    hd_ok = (np.isnan(gem["hd95"]) and np.isnan(em["hd95"])) or abs(gem["hd95"] - em["hd95"]) <= 1
+    ok = (abs(gel - el) <= 1e-5 * abs(el) and ev_flips <= 1e-4 * pixels and hd_ok
+          and abs(gsl - sl) <= 0.02 * abs(sl) and sv_flips <= 0.025 * pixels
+          and all(abs(gsm[k] - sm[k]) <= 0.02 for k in sm))
+    print(f"phase 21: evaluate fp32 over {SPATIAL_EVAL_IMAGES} images (batches 2, 2, 1): 2 ranks "
+          f"loss {gel:.6f} vs {el:.6f} (tol rel 1e-5), accuracy moved by {ev_flips:.0f} pixels "
+          f"(tol 1e-4 of {pixels}), HD95 {gem['hd95']:.4f} vs {em['hd95']:.4f} (tol 1 pixel); "
+          f"serving_evaluate bf16: loss {gsl:.6f} vs {sl:.6f} (tol 2 %), {sv_flips:.0f} pixels "
+          f"(tol 2.5 %) {'ok' if ok else 'FAIL'}")
+    check(ok, "the sharded evaluate or serving_evaluate disagrees with one process")
+
+    dry = dryrun_multichip(4, device=dev.type)
+    coll = ranks[0]["collectives"]
+    two_ms = [r["ms"] for r in ranks]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("nat_fwd", "nat_bwd")}
+    print(f"phase 21: train_step bf16 {SPATIAL_IMG}^2 B={SPATIAL_BATCH} 'flat' + 'xla', rc_remat: "
+          f"one process {' / '.join(f'{t:.1f}' for t in one_ms)} ms (before / after the "
+          f"2-rank run), 2 ranks x {SPATIAL_IMG // 2} rows on one card over gloo {two_ms} ms a "
+          f"step (two turns each rank; every exchange and all-reduce goes through the host) "
+          f"[{card_line}]; a step's collectives: {coll['halo']} halo exchanges, "
+          f"{coll['forward']} all-reduces in forwards, {coll['backward']} in backwards, "
+          f"{coll['grads']} of the gradients; torchrun 2 ranks {t_ranks:.1f}s; dry run "
+          f"{dry['mesh'][0]}x{dry['mesh'][1]} {dry['seconds']:.1f}s")
+    print(f"phase 21: spatial path: B1/B2 launches {json.dumps(launches)} (rank 0 "
+          f"{json.dumps(ranks[0]['launches'])}, rank 1 {json.dumps(ranks[1]['launches'])}); "
+          f"phase 21 {time.perf_counter() - t_phase:.1f}s")
+    return {"spatial": launches, "slabs": slabs, "one_ms": one_ms, "two_ms": two_ms,
+            "collectives": coll, "bf16_worst": b16}
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in an Itanium-mangled entry (a length-prefixed
     identifier ending in ``_kernel`` or starting ``reduce_``), with its
@@ -3196,6 +3463,7 @@ def main() -> int:
         options = phase_model_options(dev, card_line)
         served = phase_export_daemon(dev, card_line, cli.pop("export"), cli_export_path)
     ddp = phase_ddp(dev, card_line)
+    spatial = phase_spatial(dev, card_line)
     new_paths = {
         "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
                     "rc_remat_branches": options["launches"]["branches fused"]["nat_fwd"],
@@ -3209,6 +3477,8 @@ def main() -> int:
         new_paths[k]["ddp"] = ddp["ddp"][k]
         if ddp["ddp_cli"][k]:
             new_paths[k]["ddp_cli"] = ddp["ddp_cli"][k]
+    for k in ("nat_fwd", "nat_bwd"):  # phase 21: the two ranks' sum
+        new_paths[k]["spatial"] = spatial["spatial"][k]
     cli_f = (cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
              + sum(new_paths["nat_fwd"].values()))
     cli_b = (cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
@@ -3221,7 +3491,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("nat_fwd", "nat_fwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:249",
               launches["nat_fwd"] + serve_launches + cli_f,
-              {"max_abs_err": max(worst, worst_timed), "ms": k_ms, "plain_ms": p_ms}, b1_work,
+              {"max_abs_err": max(worst, worst_timed,
+                                  *(s["max_abs_err"] for s in spatial["slabs"]["nat_fwd"])),
+               "ms": k_ms, "plain_ms": p_ms}, b1_work, ms_by_slab=spatial["slabs"]["nat_fwd"],
               launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches,
                                 "cli": cli["cli"]["nat_fwd"],
                                 "train_augment": cli["train_augment"]["nat_fwd"],
@@ -3229,8 +3501,10 @@ def main() -> int:
               ms_by_stage=b1_stages),
         entry("nat_bwd", "nat_bwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:563",
               launches["nat_bwd"] + cli_b,
-              {"max_abs_err": max(worst_bwd, worst_bwd_timed), "ms": kb_ms, "plain_ms": pb_ms},
-              b2_work, ms_by_stage=b2_stages,
+              {"max_abs_err": max(worst_bwd, worst_bwd_timed,
+                                  *(s["max_abs_err"] for s in spatial["slabs"]["nat_bwd"])),
+               "ms": kb_ms, "plain_ms": pb_ms},
+              b2_work, ms_by_stage=b2_stages, ms_by_slab=spatial["slabs"]["nat_bwd"],
               launches_by_path={"training": launches["nat_bwd"], "cli": cli["cli"]["nat_bwd"],
                                 "train_augment": cli["train_augment"]["nat_bwd"],
                                 **new_paths["nat_bwd"]}),
@@ -3272,10 +3546,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # phase 20's children, started by torchrun: a rank of the 2-rank run, or
-    # the CLI under --distributed
+    # phase 20's and 21's children, started by torchrun: a rank of the 2-rank
+    # run, the CLI under --distributed, or a rank of the sharded run
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        sys.exit(spatial_rank_main(*sys.argv[2:4]))
     sys.exit(main())

@@ -31,9 +31,13 @@ whole data set and builds the same global batches of ``--batch_size``
 rows, takes its own rows of each (``parallel/mesh.py``), and computes the
 loss and the BatchNorm statistics over the global batch, so N ranks train
 as one process does; rank 0 alone writes the CSVs, checkpoints, figures and
-artifacts. ``--n_spatial`` > 1 (sharding H over ranks) is not ported and
-is refused (ROADMAP A8b). The reference's inert flags (``--mixup``,
-``--deep_supervision``, ``--smoothing``) stay inert, as in JAX;
+artifacts. ``--n_spatial S`` puts S of the N ranks on the mesh's 'spatial'
+axis: each image's H is split over them (halo exchanges between the
+ranks, ``parallel/spatial.py``) where ``--img_size`` divides by 16 S, else
+they run whole images; 0, the default, is JAX's 'auto': 2 at
+``--img_size`` >= 512 on an even world size, else 1. S must divide N, and
+``--batch_size`` the N / S ranks of the data axis. The reference's inert
+flags (``--mixup``, ``--deep_supervision``, ``--smoothing``) stay inert, as in JAX;
 ``--syncBN`` too: the statistics are the global batch's under
 ``--distributed`` whatever it says.
 """
@@ -111,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split every batch over the ranks of the process group "
                         "(torchrun or SLURM; one process without a launcher)")
     p.add_argument("--n_spatial", type=int, default=0,
-                   help="ranks on the mesh's 'spatial' axis: 0 (auto) and 1 "
-                        "take 1; > 1 (H-sharding) is not ported (ROADMAP A8b)")
+                   help="ranks on the mesh's 'spatial' axis, each holding a block "
+                        "of every image's rows (under --distributed); 0 (auto): "
+                        "2 at --img_size >= 512 on an even world size, else 1")
     p.add_argument("--k_fold", type=str2bool, default=True)
     p.add_argument("--hd95", action="store_true", default=False,
                    help="report 95th-pct Hausdorff distance on eval/test")
@@ -167,11 +172,14 @@ def build_parser() -> argparse.ArgumentParser:
 _NAT_BACKENDS = {"": "flat", "flat": "flat", "pallas": "pallas", "xla": "plain", "auto": "auto"}
 
 
-def refuse_unported(args) -> None:
-    """Raise SystemExit for a flag whose path is not ported yet."""
-    if args.n_spatial > 1:
-        raise SystemExit(f"--n_spatial {args.n_spatial} is not ported yet (ROADMAP A8b: "
-                         "sharding H over ranks)")
+def resolve_n_spatial(args, world: int) -> int:
+    """``--n_spatial`` for a world of ``world`` ranks: 0 is JAX's 'auto' (2
+    at ``--img_size`` >= 512 on an even world size, else 1); SystemExit
+    unless it divides the world size."""
+    n = args.n_spatial or (2 if args.img_size >= 512 and world % 2 == 0 else 1)
+    if n < 1 or world % n:
+        raise SystemExit(f"--n_spatial {n} must divide the world size {world}")
+    return n
 
 
 def _manifest(args, split: str, fold: int) -> str:
@@ -238,7 +246,11 @@ def _device(args) -> torch.device:
 
 def main_single(fold: int, args) -> dict:
     from lmnet_tpu_torch.models import LMNet
-    from lmnet_tpu_torch.parallel.dist_utils import is_dist_avail_and_initialized, is_main_process
+    from lmnet_tpu_torch.parallel.dist_utils import (
+        get_world_size,
+        is_dist_avail_and_initialized,
+        is_main_process,
+    )
     from lmnet_tpu_torch.train import checkpoint as ckpt
     from lmnet_tpu_torch.train.engine import create_train_state
     from lmnet_tpu_torch.train.loop import evaluate, train_one_epoch, visualize
@@ -248,11 +260,13 @@ def main_single(fold: int, args) -> dict:
     steps_per_epoch = max(len(datasets[0]) // args.batch_size, 1)
     device = _device(args)
 
-    mesh = None
+    mesh, spatial = None, False
+    n_spatial = resolve_n_spatial(args, get_world_size()) if args.distributed else 1
     if args.distributed and is_dist_avail_and_initialized():
         from lmnet_tpu_torch.parallel.mesh import make_mesh
 
-        mesh = make_mesh(n_spatial=1, device_type=device.type)
+        mesh = make_mesh(n_spatial=n_spatial, device_type=device.type)
+        spatial = n_spatial > 1
         n_data = mesh.size(0)
         if args.batch_size % n_data:
             raise SystemExit(f"--batch_size {args.batch_size} must be divisible by the "
@@ -335,10 +349,12 @@ def main_single(fold: int, args) -> dict:
                 nat_backend=_NAT_BACKENDS[args.nat_backend], rc_backend=args.rc_backend,
                 num_heads=args.num_heads or 12, natt_int8=args.natt_int8,
                 task=args.categories, device=device, compute_hd95=args.hd95, mesh=mesh,
+                spatial=spatial,
             )
         else:
             test_loss, m = evaluate(state, test_loader, args.num_classes, args.img_size,
-                                    compute_hd95=args.hd95, task=args.categories, mesh=mesh)
+                                    compute_hd95=args.hd95, task=args.categories, mesh=mesh,
+                                    spatial=spatial)
         names = ["loss", "accuracy", "precision", "recall",
                  "specificity", "dice", "iou", "mean_iou"]
         if args.hd95:
@@ -358,10 +374,11 @@ def main_single(fold: int, args) -> dict:
         train_loader, val_loader, _ = _loaders(args, datasets, epoch)
         state, train_loss, tm = train_one_epoch(
             state, train_loader, args.num_classes, args.img_size, task=args.categories,
-            seed=args.seed, epoch=epoch, mesh=mesh,
+            seed=args.seed, epoch=epoch, mesh=mesh, spatial=spatial,
         )
         val_loss, vm = evaluate(state, val_loader, args.num_classes, args.img_size,
-                                compute_hd95=args.hd95, task=args.categories, mesh=mesh)
+                                compute_hd95=args.hd95, task=args.categories, mesh=mesh,
+                                spatial=spatial)
         print(
             " train_loss:{:.4f} train_dice:{:.4f} train_iou:{:.4f} "
             "val_loss:{:.4f} val_dice:{:.4f} val_iou:{:.4f} ({:.1f} img/s)".format(
@@ -471,7 +488,6 @@ def main(argv=None) -> None:
     from lmnet_tpu_torch.parallel import dist_utils
 
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if args.plot:
         if dist_utils.is_main_process():
             plot_curves(args)

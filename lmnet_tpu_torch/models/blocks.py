@@ -26,6 +26,16 @@ Parameters are created empty; ``init_`` fills each leaf from an explicit
 ``torch.Generator`` with the JAX package's init families: torch's
 kaiming-uniform fan-in for convs and linears, kaiming-normal for the SE
 convs, truncated normal (0.02) for the attention linears and the NAT bias.
+
+Inside a shard of the mesh's 'spatial' axis (``parallel/batch.py::shard``)
+every map is this rank's block of rows, and each block asks
+``parallel/spatial.py`` for what XLA's partitioner gives JAX: a conv takes
+its kh//2 rows from the neighbours, a ReparamConv's four branches share
+one exchange of 2 rows, SE's mean is the global map's, the GFT bottleneck
+runs on the gathered map (``batch.whole``) and keeps its rows, NAT runs on
+a slab with one row of each neighbour, and a dropout mask is cut out of the
+global one. The pyramid pool stays local: each of its bins lies inside one
+block.
 """
 
 from __future__ import annotations
@@ -43,7 +53,8 @@ from lmnet_tpu_torch.ops.nat_flat import nat_flat
 from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
 from lmnet_tpu_torch.ops.rc_train import rc_branch_act
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
-from lmnet_tpu_torch.parallel.batch import dropout_rows, moments
+from lmnet_tpu_torch.parallel.batch import current_shard, dropout_rows, moments, whole
+from lmnet_tpu_torch.parallel.spatial import crop, gather_rows, halo, own_rows, spatial_mean
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -65,14 +76,26 @@ def conv_nhwc(
     bias: torch.Tensor | None = None,
     stride: int = 1,
     groups: int = 1,
+    slab: int = 0,
 ) -> torch.Tensor:
     """Conv of NHWC ``x`` with an OIHW ``weight``, torch k//2 padding. The
-    weights are cast to the activation dtype."""
+    weights are cast to the activation dtype.
+
+    Inside a shard ``x`` is this rank's rows: the conv takes kh//2 rows of
+    each neighbour (at stride 2 only the row above, since every block
+    starts on an even row), pads W alone and gives exactly this rank's rows
+    of the output. ``slab``: ``x`` already carries ``slab`` >= kh//2
+    exchanged rows above and below."""
     kh, kw = weight.shape[2], weight.shape[3]
+    ph = kh // 2
+    if slab:
+        x, ph = x[:, slab - ph:x.shape[1] - slab + ph], 0
+    elif current_shard() is not None:
+        x, ph = halo(x, ph, max(ph - stride + 1, 0)), 0
     y = F.conv2d(
         x.permute(0, 3, 1, 2), weight.to(x.dtype),
         None if bias is None else bias.to(x.dtype),
-        stride, (kh // 2, kw // 2), 1, groups,
+        stride, (ph, kw // 2), 1, groups,
     )
     return y.permute(0, 2, 3, 1)
 
@@ -110,8 +133,8 @@ class Conv(nn.Module):
         if self.bias is not None:
             self.bias.uniform_(-bound, bound, generator=g)
 
-    def forward(self, x):
-        return conv_nhwc(x, self.weight, self.bias, self.stride, self.groups)
+    def forward(self, x, slab: int = 0):
+        return conv_nhwc(x, self.weight, self.bias, self.stride, self.groups, slab)
 
 
 class Dense(nn.Module):
@@ -259,8 +282,9 @@ class SE(nn.Module):
     def forward(self, x, pooled=None):
         """``pooled``: the (B, 1, 1, C) global mean of x when the caller has
         it already (the fused train-mode block takes it from its kernel's
-        channel sums), in x's dtype."""
-        s = x.mean(dim=(1, 2), keepdim=True) if pooled is None else pooled
+        channel sums), in x's dtype. Inside a shard the mean is the global
+        map's."""
+        s = spatial_mean(x) if pooled is None else pooled
         s = F.hardsigmoid(self.fc2(F.relu(self.fc1(s))))
         return x * s
 
@@ -325,6 +349,13 @@ class ReparamConv(nn.Module):
     def _branches(self):
         return (self.large_conv, self.square_conv, self.ver_conv, self.hor_conv)
 
+    def _branch_convs(self, e):
+        """The four branch convs of ``e``; inside a shard they share one
+        exchange of 2 rows."""
+        rows = 2 if current_shard() is not None else 0
+        src = halo(e, rows, rows)
+        return [b.conv(src, slab=rows) for b in self._branches()]
+
     def _tail(self, x, branches):
         t = self.se(gelu(branches[0] + branches[1] + branches[2] + branches[3],
                          self.gelu_exact))
@@ -333,7 +364,8 @@ class ReparamConv(nn.Module):
     def forward(self, x, train: bool = False):
         if not train:
             e = F.hardswish(self.expand_conv(x))
-            return self._tail(x, [b(e) for b in self._branches()])
+            ys = self._branch_convs(e)
+            return self._tail(x, [b.bn(y) for b, y in zip(self._branches(), ys)])
         if self.remat == "branches":
             out, stats = checkpoint(self._after_expand, x, self.expand_conv[0](x),
                                     use_reentrant=False, preserve_rng_state=False)
@@ -372,7 +404,7 @@ class ReparamConv(nn.Module):
         if self.train_backend == "packed":
             ys = self._packed_branches(e)
         else:
-            ys = [b.conv(e) for b in self._branches()]
+            ys = self._branch_convs(e)
         out = []
         for b, y in zip(self._branches(), ys):
             y, mean, var = b.bn.train_forward(y)
@@ -469,7 +501,9 @@ def global_attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 class GFT(nn.Module):
     """Global-former bottleneck: patch embed -> LN -> MHSA (+res) -> LN ->
-    MLP (+res) -> 1x1 conv."""
+    MLP (+res) -> 1x1 conv. Inside a shard every rank gathers the whole
+    (H/16, W/16) map, runs the block on it (its dropout masks drawn whole)
+    and keeps its own rows; the gather's backward sums the gradients."""
 
     def __init__(self, dim: int, cout: int, num_heads: int = 12, gelu_exact: bool = False):
         super().__init__()
@@ -481,17 +515,19 @@ class GFT(nn.Module):
         self.conv = nn.Sequential(Conv(dim, cout, 1))
 
     def forward(self, x, deterministic: bool = True, generator: torch.Generator | None = None):
+        x = gather_rows(x)
         B, H, W, _ = x.shape
-        emb = self.patchembedding(x)
-        tokens = emb.reshape(B, H * W, -1)
-        att = self.attention(self.norm1(tokens)) + tokens
-        out = self.mlp(self.norm2(att), deterministic, generator) + att
-        return self.conv(out.reshape(B, H, W, -1))
+        with whole():
+            emb = self.patchembedding(x)
+            tokens = emb.reshape(B, H * W, -1)
+            att = self.attention(self.norm1(tokens)) + tokens
+            out = self.mlp(self.norm2(att), deterministic, generator) + att
+        return self.conv(own_rows(out.reshape(B, H, W, -1)))
 
 
 def pyramid_pool(xs: Sequence[torch.Tensor], x_last: torch.Tensor) -> torch.Tensor:
     """Adaptive-avg-pool every scale to x_last's (H, W) and concatenate the
-    channels."""
+    channels. Local inside a shard: each bin lies inside one block."""
     h, w = x_last.shape[1], x_last.shape[2]
     return torch.cat([adaptive_avg_pool(x, (h, w)) for x in xs] + [x_last], dim=-1)
 
@@ -567,8 +603,25 @@ class NeighborhoodAttention2D(nn.Module):
         # flat NAT layout without a copy
         C = x.shape[-1]
         w, b = self.qkv.weight.to(x.dtype), self.qkv.bias.to(x.dtype)
-        q, k, v = (F.linear(x, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C]) for i in range(3))
-        return self.proj(nat(q, k, v, self.rpb, self.num_heads, self.backend))
+
+        def attend(xs):
+            q, k, v = (F.linear(xs, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
+                       for i in range(3))
+            return nat(q, k, v, self.rpb, self.num_heads, self.backend)
+
+        return self.proj(nat_rows(x, attend))
+
+
+def nat_rows(x, attend):
+    """``attend(x)``: a NAT layer's attention (kernel 3, clamped windows) on
+    NHWC ``x``. Inside a shard it runs on the slab of x with one row of
+    each neighbour and none past the global edges, where each window and
+    its rpb offset are the global ones (every block holds >= 2 rows), so
+    the kernels run unchanged; the result is cut to this rank's rows and
+    the halo rows' dk and dv go home through the exchange's backward."""
+    if current_shard() is not None and x.shape[1] < 2:
+        raise ValueError(f"NAT on an H shard needs 2 rows a rank, this rank holds {x.shape[1]}")
+    return crop(attend(halo(x, 1, 1, edges=False)), 1, 1, edges=False)
 
 
 def nat(q, k, v, rpb, num_heads: int, backend: str):

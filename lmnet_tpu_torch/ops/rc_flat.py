@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
 from lmnet_tpu_torch.ops._build import aligned
+from lmnet_tpu_torch.parallel.spatial import refuse_on_shard
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BN_EPS = 1e-5
@@ -119,8 +120,11 @@ def dw_gelu_flat(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tens
     channel sums of the float32 t before the cast. JAX's ``dw_gelu_flat``
     returns (B, W*C) flat sums; its callers fold them over W, which gives
     these. Each launch of the CUDA kernel adds one to ``dw_gelu_flat.launches``;
-    two calls with the same inputs give bitwise-equal sums.
+    two calls with the same inputs give bitwise-equal sums. Raises inside
+    an H shard: the conv and the sums see only the block's rows (ROADMAP
+    A8c).
     """
+    refuse_on_shard("the B5 kernel (rc_backend='flat', rc_train_backend='fused')")
     B, H, W = _check_shapes(e_flat, kernel5x5, bias, C)
     if e_flat.device.type == "cpu":
         return dw_gelu_flat_plain(e_flat, kernel5x5, bias, C)

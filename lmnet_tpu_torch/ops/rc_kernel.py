@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
 from lmnet_tpu_torch.ops._build import aligned
+from lmnet_tpu_torch.parallel.spatial import refuse_on_shard
 from lmnet_tpu_torch.ops.rc_flat import (
     BN_EPS,
     MAX_SMEM,
@@ -213,8 +214,10 @@ def fused_reparam_conv(x: torch.Tensor, w: dict) -> torch.Tensor:
     first, a copy where it is a permuted view or does not start on 16
     bytes) and adds one to
     ``fused_reparam_conv.launches`` per call; on CPU tensors it is
-    ``fused_reparam_conv_plain``.
+    ``fused_reparam_conv_plain``. Raises inside an H shard (ROADMAP A8c):
+    its SE sums sit between its two passes.
     """
+    refuse_on_shard("the B4 kernel (rc_backend='pallas')")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
     if x.device.type == "cpu":

@@ -47,6 +47,7 @@ from lmnet_tpu_torch.ops.rc_flat import (
 )
 from lmnet_tpu_torch.ops.reparam import fuse_reparam_branches
 from lmnet_tpu_torch.parallel.batch import global_count, global_sum, moments
+from lmnet_tpu_torch.parallel.spatial import refuse_on_shard
 
 BRANCHES = ("large", "square", "ver", "hor")  # the reference's sum order
 _SHAPES = ((5, 5), (3, 3), (3, 1), (1, 3))
@@ -151,8 +152,10 @@ def rc_branch_stats(e_flat, k5, k3, kv, kh, C: int) -> torch.Tensor:
     On CUDA tensors it launches ``csrc/rc_stats.cu`` with the launch
     geometry of ``stats_plan``, which the kernel checks (one more in
     ``rc_branch_stats.launches``; two calls give bitwise-equal results). On
-    CPU tensors it is ``rc_branch_stats_plain``.
+    CPU tensors it is ``rc_branch_stats_plain``. Raises inside an H shard:
+    its sums would count the halo rows (ROADMAP A8c).
     """
+    refuse_on_shard("the B6 kernel (rc_train_backend='fused')")
     kernels = (k5, k3, kv, kh)
     B, H, W = _check_shapes(e_flat, kernels, C)
     if e_flat.device.type == "cpu":
@@ -258,8 +261,10 @@ def rc_branch_act(e_flat, k5, k3, kv, kh, gamma, beta, C: int, eps: float = 1e-5
     float32, mu (4, C), var (4, C)): the SE channel sums of t, and the batch
     statistics for the caller's running-statistics update (not
     differentiable). On CUDA tensors the forward runs the two kernels; on
-    CPU tensors it is ``rc_branch_act_plain``.
+    CPU tensors it is ``rc_branch_act_plain``. Raises inside an H shard, on
+    either device (ROADMAP A8c).
     """
+    refuse_on_shard("rc_train_backend='fused' (the B5 and B6 kernels)")
     if e_flat.device.type == "cpu":
         return rc_branch_act_plain(e_flat, k5, k3, kv, kh, gamma, beta, C, eps)
     return _RcBranchAct.apply(e_flat, k5, k3, kv, kh, gamma, beta, C, eps)

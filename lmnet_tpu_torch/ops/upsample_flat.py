@@ -26,6 +26,7 @@ import torch
 
 from lmnet_tpu_torch.ops import _build
 from lmnet_tpu_torch.ops._build import aligned
+from lmnet_tpu_torch.parallel.spatial import refuse_on_shard
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -224,7 +225,9 @@ def upsample2x_flat(x: torch.Tensor) -> torch.Tensor:
     NHWC (B, H, W, C) ``x`` -> (B, 2H, 2W, C) in x's dtype, float32 math;
     differentiable. On a CUDA tensor a permuted view, or one whose data
     does not start on 16 bytes, is copied to a contiguous one first; each
-    launch of the kernel adds one to ``upsample2x_flat.launches``."""
+    launch of the kernel adds one to ``upsample2x_flat.launches``. Raises
+    inside an H shard: its source rows are the block's own (ROADMAP A8c)."""
+    refuse_on_shard("the B7 kernel (LMNET_UPSAMPLE_BACKEND=flat)")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
     if x.is_cpu:

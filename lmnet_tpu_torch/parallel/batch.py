@@ -14,7 +14,16 @@ the port holds only its own rows, so its step runs inside
 * ``dropout_rows`` cuts this rank's rows out of a dropout mask drawn at the
   global batch's shape, so W ranks draw the masks one process draws.
 
-Outside the context each of these is the one-process computation, unchanged.
+Beside it sits the mesh's 'spatial' axis: inside ``shard(group, index,
+size)`` every map a forward holds is this rank's block of rows of the
+global map (``parallel/spatial.py`` holds the halo exchanges and the other
+primitives that work on such a block). Then the group of ``global_batch``
+is the world (every rank holds other pixels), ``moments`` and
+``global_count`` count the global H (size x the local rows), and
+``dropout_rows`` draws the mask at the global H too and cuts this rank's
+rows of it in both axes.
+
+Outside the contexts each of these is the one-process computation, unchanged.
 
 Gradient scale: the backward of ``global_sum`` all-reduces the gradient
 that reaches it. Every rank computes the same global loss L from the
@@ -29,7 +38,8 @@ included, because every rank runs the same graph. So a process runs one
 step at a time: while a global batch is open, only the thread that opened
 it and autograd's backward may use it, and any other thread that asks (a
 BatchNorm train forward or a loss elsewhere, which would issue all-reduces
-the other ranks never match) gets a RuntimeError.
+the other ranks never match) gets a RuntimeError. The shard is held the
+same way.
 """
 
 from __future__ import annotations
@@ -41,9 +51,11 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-# all-reduces issued by global_sum in forwards and in backwards, and by
-# all_reduce_grads (one a step)
-COUNTS = {"forward": 0, "backward": 0, "grads": 0}
+# all-reduces issued by global_sum (and spatial.spatial_mean,
+# spatial.gather_rows) in forwards and in backwards, by all_reduce_grads (one
+# a step), and the halo exchanges of parallel/spatial.py, forwards and
+# backwards
+COUNTS = {"forward": 0, "backward": 0, "grads": 0, "halo": 0}
 
 
 @dataclass(frozen=True)
@@ -54,7 +66,16 @@ class _Batch:
     thread: int  # the thread that opened it
 
 
+@dataclass(frozen=True)
+class Shard:
+    group: object  # the ranks of the 'spatial' axis that hold this image's rows
+    index: int  # this rank's place on the axis: it holds the index-th block of rows
+    size: int  # ranks on the axis
+    thread: int  # the thread that opened it
+
+
 _ACTIVE: _Batch | None = None
+_SHARD: Shard | None = None
 
 
 @contextlib.contextmanager
@@ -71,15 +92,57 @@ def global_batch(group, rows: int, start: int):
         _ACTIVE = None
 
 
-def _batch() -> _Batch | None:
-    """The open global batch, or None; raises on a thread other than the
-    one that opened it, outside autograd's backward."""
-    b = _ACTIVE
-    if (b is not None and threading.get_ident() != b.thread
+def _owned(ctx):
+    """``ctx`` (an open global batch or shard, or None); raises on a thread
+    other than the one that opened it, outside autograd's backward."""
+    if (ctx is not None and threading.get_ident() != ctx.thread
             and torch._C._current_graph_task_id() == -1):
-        raise RuntimeError("a global batch is open on another thread: a process runs one "
-                           "data-parallel step at a time")
-    return b
+        raise RuntimeError("a global batch or shard is open on another thread: a process runs "
+                           "one data-parallel step at a time")
+    return ctx
+
+
+def _batch() -> _Batch | None:
+    return _owned(_ACTIVE)
+
+
+@contextlib.contextmanager
+def shard(group, index: int, size: int):
+    """Within the block every map is this rank's ``index``-th block of rows
+    of a map of ``size`` blocks, the others held by the ranks of ``group``
+    (in order)."""
+    global _SHARD
+    if _SHARD is not None:
+        raise RuntimeError("shard does not nest")
+    _SHARD = Shard(group, int(index), int(size), threading.get_ident())
+    try:
+        yield
+    finally:
+        _SHARD = None
+
+
+@contextlib.contextmanager
+def whole():
+    """Within the block, inside a shard, the maps are whole again (each rank
+    runs the gathered GFT bottleneck): no halo, no spatial sum, dropout cut
+    in rows only. Only forward code runs in it; nothing in it is
+    recomputed."""
+    global _SHARD
+    held, _SHARD = current_shard(), None
+    try:
+        yield
+    finally:
+        _SHARD = held
+
+
+def current_shard() -> Shard | None:
+    """The open shard, or None."""
+    return _owned(_SHARD)
+
+
+def _h_blocks() -> int:
+    s = current_shard()
+    return 1 if s is None else s.size
 
 
 def active() -> bool:
@@ -113,49 +176,57 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
 
 
 def global_count(t: torch.Tensor) -> int:
-    """``t.numel()`` at the global batch's rows (``t``'s leading axis is the
-    batch)."""
+    """``t.numel()`` at the global batch's rows and the global H (``t``'s
+    leading axes are the batch and H)."""
     b = _batch()
-    if b is None:
-        return t.numel()
-    return t.numel() // t.shape[0] * b.rows
+    rows = t.shape[0] if b is None else b.rows
+    return t.numel() // t.shape[0] * rows * _h_blocks()
 
 
 def moments(xf: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """float32 mean and biased variance E[x^2] - E[x]^2 (clamped at 0) of
-    float32 ``xf`` over ``dims``, which hold the batch axis 0. Outside a
-    global batch it is flax's ``_compute_stats`` (means of x and x^2); inside,
-    the sums of x and x^2 are all-reduced in one call and divided by the
-    global count."""
+    float32 ``xf`` over ``dims``, which hold the batch axis 0 (and H, axis
+    1, inside a shard). Outside a global batch it is flax's
+    ``_compute_stats`` (means of x and x^2); inside, the sums of x and x^2
+    are all-reduced in one call and divided by the global count. Inside a
+    shard it needs a global batch: a block's own statistics are not the
+    map's."""
     b = _batch()
+    if b is None and current_shard() is not None:
+        raise RuntimeError("batch statistics on an H shard need a global_batch over the world "
+                           "(train_step opens both)")
     if b is None:
         mean = xf.mean(dim=dims)
         return mean, torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
     n = 1
     for d in dims:
         n *= xf.shape[d]
-    n = n // xf.shape[0] * b.rows
+    n = n // xf.shape[0] * b.rows * (_h_blocks() if 1 in dims else 1)
     s = global_sum(torch.stack([xf.sum(dim=dims), xf.square().sum(dim=dims)]))
     mean = s[0] / n
     return mean, torch.clamp(s[1] / n - mean.square(), min=0.0)
 
 
 def dropout_rows(draw, shape):
-    """A mask of ``shape`` (leading axis: this rank's rows) from
-    ``draw(full_shape)``: outside a global batch ``draw(shape)``; inside,
-    the global batch's mask, sliced to this rank's rows, so the generator
-    advances as it does in one process."""
-    b = _batch()
-    if b is None:
-        return draw(tuple(shape))
-    full = draw((b.rows, *shape[1:]))
-    return full[b.start:b.start + shape[0]]
+    """A mask of ``shape`` (leading axes: this rank's rows, then its H rows
+    inside a shard) from ``draw(full_shape)``: outside a global batch and a
+    shard ``draw(shape)``; inside, the mask of the global batch's rows (and
+    the global H), sliced to this rank's rows, so the generator advances as
+    it does in one process."""
+    b, s = _batch(), current_shard()
+    rows, start = (shape[0], 0) if b is None else (b.rows, b.start)
+    h = shape[1] if s is None else shape[1] * s.size
+    full = draw((rows, h, *shape[2:]))[start:start + shape[0]]
+    return full if s is None else full[:, s.index * shape[1]:(s.index + 1) * shape[1]]
 
 
 def all_reduce_grads(params, group) -> None:
-    """Replace every parameter's gradient by its mean over ``group``: one
-    all-reduce of all gradients, flattened (a parameter without a gradient
-    counts as zeros)."""
+    """Replace every parameter's gradient by its mean over ``group`` (the
+    world: every rank of the mesh): one all-reduce of all gradients,
+    flattened (a parameter without a gradient counts as zeros). Each rank
+    holds world x its share of dL/dtheta (every collective's backward is its
+    adjoint), so the mean over the world, not over the data axis alone, is
+    dL/dtheta."""
     params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])

@@ -24,7 +24,13 @@ skip blocks' fuse conv). Unlike JAX, ``natt_int8`` with ``ln_fold`` raises
 over the mesh's data axis and sums the results over the ranks, as
 ``train.loop.evaluate``; each rank serves whole images, so B1 serves there
 too (JAX takes its 'xla' NAT under a mesh, because a Pallas call does not
-partition).
+partition). ``serving_evaluate(spatial=True)`` also splits the image H over
+the mesh's 'spatial' axis where it divides (``parallel/mesh.py::
+shards_h``): ``deploy_forward`` then runs inside the shard, with the halo
+exchanges, SE's global mean, the gathered GFT and NAT on slabs of
+``models/blocks.py`` (B1 on each rank's slab). 'flat' and 'pallas'
+ReparamConv (B5, B4) and the B7 upsample raise there (ROADMAP A8c); the
+autotune draws only from the candidates that run on a shard.
 """
 
 from __future__ import annotations
@@ -43,7 +49,6 @@ from lmnet_tpu_torch.metrics.confusion import (
     confusion_matrix,
     derived_metrics,
 )
-from lmnet_tpu_torch.metrics.hd95 import hausdorff_distance_95
 from lmnet_tpu_torch.models.blocks import (
     BN_EPS,
     LN_EPS,
@@ -51,12 +56,23 @@ from lmnet_tpu_torch.models.blocks import (
     gelu,
     global_attention_core,
     nat,
+    nat_rows,
 )
 from lmnet_tpu_torch.models.lm_net import structural_reparam
 from lmnet_tpu_torch.ops.rc_flat import fold_rc_flat_weights, fused_rc_block
 from lmnet_tpu_torch.ops.rc_kernel import fold_rc_weights, fused_reparam_conv
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
-from lmnet_tpu_torch.parallel.mesh import data_group, eval_totals, shard_rows
+from lmnet_tpu_torch.parallel.batch import current_shard, whole
+from lmnet_tpu_torch.parallel.mesh import (
+    eval_totals,
+    h_rows,
+    hd95_values,
+    shard_context,
+    shard_rows,
+    shards_h,
+    sum_group,
+)
+from lmnet_tpu_torch.parallel.spatial import gather_rows, own_rows, spatial_mean
 
 RC_BACKENDS = ("xla", "flat", "pallas")
 
@@ -168,12 +184,16 @@ def _m3skip_composed(sd: Tensors, name: str, xl, xm, xs):
 
 
 def _gft(sd: Tensors, x, num_heads: int):
+    """The GFT bottleneck; on a shard, on the gathered map (its rows kept),
+    as ``models/blocks.py::GFT``."""
+    x = gather_rows(x)
     B, H, W, _ = x.shape
-    emb = _conv(sd, "gft.patchembedding.patch_embeddings", x).reshape(B, H * W, -1)
-    qkv = _dense(sd, "gft.attention.qkv", _ln(sd, "gft.norm1", emb))
-    att = _dense(sd, "gft.attention.proj", global_attention_core(qkv, num_heads)) + emb
-    out = _mlp(sd, "gft.mlp", _ln(sd, "gft.norm2", att)) + att
-    return _conv(sd, "gft.conv.0", out.reshape(B, H, W, -1))
+    with whole():
+        emb = _conv(sd, "gft.patchembedding.patch_embeddings", x).reshape(B, H * W, -1)
+        qkv = _dense(sd, "gft.attention.qkv", _ln(sd, "gft.norm1", emb))
+        att = _dense(sd, "gft.attention.proj", global_attention_core(qkv, num_heads)) + emb
+        out = _mlp(sd, "gft.mlp", _ln(sd, "gft.norm2", att)) + att
+    return _conv(sd, "gft.conv.0", own_rows(out.reshape(B, H, W, -1)))
 
 
 def _ln_static_scale(sd: Tensors, name: str) -> torch.Tensor:
@@ -244,13 +264,17 @@ def natt_interior(sd: Tensors, name: str, emb, num_heads: int, nat_backend: str,
     """The NATT block ``name`` after its patch-embed conv, on NHWC ``emb``:
     the unfused counterpart of ``ops/natt_flat.py::natt_flat_interior``."""
     C = emb.shape[-1]
+
     # weight-sliced qkv: three contiguous outputs that reshape to the flat
     # NAT layout without a copy. Under natt_int8 only qkv and fc1 take int8
     # products; proj and fc2 stay in the compute dtype (their inputs have no
     # static bound)
-    q, k, v = _ln_dense(sd, f"{name}.norm1", f"{name}.att1.qkv", emb,
-                        [slice(i * C, (i + 1) * C) for i in range(3)], natt_int8, ln_fold)
-    out = nat(q, k, v, sd[f"{name}.att1.rpb"], num_heads, nat_backend)
+    def attend(xs):
+        q, k, v = _ln_dense(sd, f"{name}.norm1", f"{name}.att1.qkv", xs,
+                            [slice(i * C, (i + 1) * C) for i in range(3)], natt_int8, ln_fold)
+        return nat(q, k, v, sd[f"{name}.att1.rpb"], num_heads, nat_backend)
+
+    out = nat_rows(emb, attend)
     att = _dense(sd, f"{name}.att1.proj", out) + emb
     (h,) = _ln_dense(sd, f"{name}.norm2", f"{name}.mlp.fc1", att, [slice(None)], natt_int8,
                      ln_fold)
@@ -268,7 +292,7 @@ def _rc(sd: Tensors, name: str, h, rc_backend: str):
     t = gelu(_conv(sd, f"{name}.fuse_conv", e, groups=e.shape[-1]))
     # the SE squeeze stays in the compute dtype (float32 SE weights would
     # promote t, and every later block, to float32)
-    m = t.mean(dim=(1, 2), keepdim=True)
+    m = spatial_mean(t)
     w1 = sd[f"{name}.se.fc1.weight"].flatten(1)
     w2 = sd[f"{name}.se.fc2.weight"].flatten(1)
     m = F.relu(F.linear(m, w1.to(m.dtype), sd[f"{name}.se.fc1.bias"].to(m.dtype)))
@@ -302,6 +326,10 @@ def deploy_forward(
     ``skip_compose``: convl/convm/convs composed into the skip blocks' fuse
     conv (exact in the interior; the outermost ring of each skip's map
     differs, see ``_compose_kk``).
+
+    Inside a shard (``parallel/batch.py::shard``) ``x`` is this rank's block
+    of rows and so are the logits; every option runs there, 'flat' and
+    'pallas' ReparamConv do not (ROADMAP A8c).
     """
     if rc_backend not in RC_BACKENDS:
         raise ValueError(f"rc_backend must be one of {RC_BACKENDS}, not {rc_backend!r}")
@@ -409,8 +437,9 @@ def autoselect_backends(
     Unlike JAX's sweep, a candidate that raises fails the call: a kernel
     that cannot launch is never hidden behind another backend.
     """
+    shard = current_shard()
     key = (tuple(x.shape), str(x.dtype), num_heads, natt_int8, tuple(rc_candidates),
-           tuple(nat_candidates))
+           tuple(nat_candidates), shard and (shard.index, shard.size))
     if key not in AUTOTUNE_CACHE:
         if time_fn is None:
             time_fn = _forward_seconds(deploy_vars, x, num_heads, iters, natt_int8)
@@ -423,8 +452,10 @@ def autoselect_backends(
 def _resolve_auto(deploy_vars: Tensors, x: torch.Tensor, num_heads: int, rc_backend,
                   nat_backend, natt_int8: bool = False) -> tuple:
     """Expand 'auto' in either slot through ``autoselect_backends``, pinning
-    a slot that is not 'auto' to its value."""
-    rc_cands = ("xla", "flat") if rc_backend == "auto" else (rc_backend,)
+    a slot that is not 'auto' to its value; inside a shard 'auto' draws only
+    from the ReparamConv backends that run there ('xla')."""
+    rc_auto = ("xla",) if current_shard() is not None else ("xla", "flat")
+    rc_cands = rc_auto if rc_backend == "auto" else (rc_backend,)
     nat_cands = ("flat", "plain") if nat_backend == "auto" else (nat_backend,)
     return autoselect_backends(deploy_vars, x, num_heads, rc_candidates=rc_cands,
                                nat_candidates=nat_cands, natt_int8=natt_int8)
@@ -443,6 +474,7 @@ def serving_evaluate(
     device: torch.device | str = "cuda",
     compute_hd95: bool = False,
     mesh=None,
+    spatial: bool = False,
 ) -> tuple[float, dict[str, float]]:
     """Evaluate a train-mode state dict through the serving path: reparam
     once, move the deploy state to ``device`` (the card unless the caller
@@ -457,7 +489,9 @@ def serving_evaluate(
     batch's CE numerator and denominator and the HD95 sums are summed over
     the ranks in one float64 all-reduce (``eval_totals``), so the result is
     one process's. An 'auto' backend is timed on every rank and rank 0's
-    pick is broadcast.
+    pick is broadcast. ``spatial``: each rank also serves its block of the
+    image H where ``shards_h`` allows it (the sums then go over the world,
+    HD95 on the gathered maps), else whole images.
 
     Returns (summed per-batch CE loss, derived metrics), as the JAX engine.
     """
@@ -466,7 +500,9 @@ def serving_evaluate(
     cm = ConfusionAccumulator.init(num_classes, device)
     terms = []  # each batch's (CE numerator, denominator)
     hd_sum, hd_cnt = 0.0, 0
-    with torch.inference_mode():
+    sharded = mesh is not None and shards_h(mesh, img_size, spatial)
+    hs = h_rows(mesh, img_size) if sharded else slice(None)
+    with torch.inference_mode(), shard_context(mesh, sharded):
         for images, masks in loader:
             rows = (slice(0, images.shape[0]) if mesh is None
                     else shard_rows(mesh, images.shape[0]))
@@ -480,7 +516,7 @@ def serving_evaluate(
                 torch.from_numpy(images[rows]).to(device), torch.from_numpy(masks[rows]).to(device),
                 out_size=img_size,
             )
-            x = x.to(torch.bfloat16)
+            x, y = x[:, hs].to(torch.bfloat16), y[:, hs]
             if "auto" in (rc_backend, nat_backend):
                 picked = _resolve_auto(deploy, x, num_heads, rc_backend, nat_backend, natt_int8)
                 if mesh is not None:
@@ -494,13 +530,10 @@ def serving_evaluate(
             preds = logits.argmax(dim=-1)
             cm += confusion_matrix(preds, y, num_classes)
             if compute_hd95:
-                for p, t in zip(preds.cpu().numpy(), y.cpu().numpy()):
-                    v = hausdorff_distance_95(p == 1, t == 1)
-                    if not np.isnan(v):
-                        hd_sum += v
-                        hd_cnt += 1
+                for v in hd95_values(preds, y):
+                    hd_sum, hd_cnt = hd_sum + v, hd_cnt + 1
     cm, total_loss, hd_sum, hd_cnt = eval_totals(
-        cm, terms, hd_sum, hd_cnt, data_group(mesh) if mesh is not None else None)
+        cm, terms, hd_sum, hd_cnt, sum_group(mesh, sharded) if mesh is not None else None)
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}
     if compute_hd95:
         metrics["hd95"] = hd_sum / hd_cnt if hd_cnt else float("nan")
@@ -511,12 +544,11 @@ _NAT_NAMES = ("flat", "pallas", "plain")
 
 
 def _rank0_pick(mesh, picked: tuple, device) -> tuple:
-    """Rank 0's (rc, nat) backend pair on every rank of ``mesh``'s data
-    axis (one broadcast of the two names' indices)."""
+    """Rank 0's (rc, nat) backend pair on every rank of ``mesh`` (one
+    broadcast of the two names' indices)."""
     import torch.distributed as dist
 
     rc, nat_b = picked
     idx = torch.tensor([RC_BACKENDS.index(rc), _NAT_NAMES.index(nat_b)], device=device)
-    group = data_group(mesh)
-    dist.broadcast(idx, dist.get_global_rank(group, 0), group=group)
+    dist.broadcast(idx, 0)
     return RC_BACKENDS[int(idx[0])], _NAT_NAMES[int(idx[1])]

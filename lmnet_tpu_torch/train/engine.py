@@ -18,6 +18,10 @@ sharded over the mesh's 'data' axis: this rank's rows run the forward and
 backward inside ``parallel/batch.py::global_batch`` (the loss and every
 BatchNorm statistic over the global batch), then the gradients' mean over
 the ranks (one all-reduce) goes into AdamW, which every rank runs alike.
+With ``spatial=True`` the rows are also this rank's block of the image H
+(the mesh's 'spatial' axis): the step runs inside ``parallel/batch.py::
+shard`` too, its sums go over the world, and the gradients' mean over all
+n_data x n_spatial ranks.
 """
 
 from __future__ import annotations
@@ -28,11 +32,12 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from lmnet_tpu_torch.losses.losses import cross_entropy_loss, cross_entropy_terms, dice_loss
 from lmnet_tpu_torch.metrics.confusion import confusion_matrix
 from lmnet_tpu_torch.parallel.batch import all_reduce_grads, global_batch
-from lmnet_tpu_torch.parallel.mesh import data_group, shard_rows
+from lmnet_tpu_torch.parallel.mesh import shard_context, shard_rows, sum_group
 
 
 def cosine_epoch_schedule(
@@ -122,6 +127,7 @@ def train_step(
     label_smoothing: float = 0.001,
     mesh=None,
     global_rows: int | None = None,
+    spatial: bool = False,
 ):
     """One optimisation step on NHWC float ``images`` and (B, H, W) integer
     ``labels``. Updates ``state`` in place; returns (state, loss, cm) with
@@ -130,16 +136,19 @@ def train_step(
 
     ``mesh`` (``parallel.make_mesh``): ``images`` and ``labels`` are this
     rank's rows (``parallel/mesh.py::shard_rows``) of a global batch of
-    ``global_rows`` rows (default: this rank's rows times the data axis).
-    The loss returned is the global batch's, equal on every rank; ``cm``
-    gains this rank's rows only (``train_one_epoch`` sums it over the
-    ranks once an epoch)."""
+    ``global_rows`` rows (default: this rank's rows times the data axis);
+    with ``spatial``, of those rows this rank's block of H rows
+    (``parallel/mesh.py::h_rows``, of a global H = H x the 'spatial'
+    axis, which ``shards_h`` must allow), else whole images. The loss
+    returned is the global batch's, equal on every rank; ``cm`` gains this
+    rank's pixels only (``train_one_epoch`` sums it over the ranks once an
+    epoch)."""
     ce_weight = _weights(ce_weight, num_classes)
     dice_weight = _weights(dice_weight, num_classes)
     lr = state.schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
-    context, group = contextlib.nullcontext(), None
+    context = contextlib.ExitStack()
     if mesh is not None:
         n = images.shape[0] * mesh.size(0) if global_rows is None else global_rows
         rows = shard_rows(mesh, n)
@@ -147,8 +156,12 @@ def train_step(
             raise ValueError(f"a rank's batch of {images.shape[0]} rows is not its share "
                              f"{rows} of a global batch of {n} over {mesh.size(0)} ranks (each "
                              "rank needs at least one row)")
-        group = data_group(mesh)
-        context = global_batch(group, n, rows.start)
+        sharded = spatial and mesh.size(1) > 1
+        if sharded and images.shape[1] % 16:
+            raise ValueError(f"a block of {images.shape[1]} rows: H must divide by 16 x the "
+                             f"{mesh.size(1)}-rank 'spatial' axis (parallel/mesh.py::shards_h)")
+        context.enter_context(global_batch(sum_group(mesh, sharded), n, rows.start))
+        context.enter_context(shard_context(mesh, sharded))
     with context:
         logits = state.model(images, train=True, generator=state.generator)
         loss = cross_entropy_loss(logits, labels, ce_weight, label_smoothing) + dice_loss(
@@ -156,8 +169,8 @@ def train_step(
         )
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-    if group is not None:
-        all_reduce_grads(state.model.parameters(), group)
+    if mesh is not None:
+        all_reduce_grads(state.model.parameters(), dist.group.WORLD)
     state.optimizer.step()
     state.step += 1
     with torch.no_grad():

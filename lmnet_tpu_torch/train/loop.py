@@ -22,8 +22,14 @@ sums the matrix, each batch's CE numerator and denominator and the HD95
 sums in one float64 all-reduce, so a W-rank epoch reports what one process
 reports. ``evaluate(cross_host=True)`` is JAX's multi-host eval: each rank
 evaluates a loader of its own and (matrix, loss, HD95 sums) are summed over
-the ranks (``_allreduce_eval``). JAX's ``spatial`` (H-sharding) is not
-ported (ROADMAP A8b).
+the ranks (``_allreduce_eval``).
+
+``spatial`` (JAX's): on a mesh with a 'spatial' axis of n > 1 ranks and an
+``img_size`` that divides by 16 n (``parallel/mesh.py::shards_h``), each
+rank also keeps its block of every image's rows, the steps run inside the
+shard (halo exchanges, sums over the world), the matrices and eval sums
+are summed over the world, and HD95 is taken on the gathered maps.
+Otherwise every rank of the axis runs whole images, as JAX's fallback.
 """
 
 from __future__ import annotations
@@ -43,8 +49,17 @@ from lmnet_tpu_torch.metrics.confusion import (
     confusion_matrix,
     derived_metrics,
 )
-from lmnet_tpu_torch.metrics.hd95 import hausdorff_distance_95
-from lmnet_tpu_torch.parallel.mesh import data_group, eval_totals, shard_rows, sum_float64
+from lmnet_tpu_torch.parallel.mesh import (
+    data_group,
+    eval_totals,
+    h_rows,
+    hd95_values,
+    shard_context,
+    shard_rows,
+    shards_h,
+    sum_float64,
+    sum_group,
+)
 from lmnet_tpu_torch.train.engine import TrainState, eval_step, train_step
 
 # the streams fold_seed derives from (seed, epoch)
@@ -88,6 +103,7 @@ def train_one_epoch(
     seed: int = 0,
     epoch: int = 0,
     mesh=None,
+    spatial: bool = False,
 ):
     """Run one training epoch over the loader's (uint8 images, uint8 masks)
     numpy batches. Returns (state, total_loss, metrics) with
@@ -98,9 +114,12 @@ def train_one_epoch(
     ``eval_pipeline`` (normalise only). ``seed`` and ``epoch`` seed the
     epoch's dropout and augmentation generators (``fold_seed``). ``mesh``:
     each batch split over the data axis (every rank needs a row of each);
-    the loss, the metrics and the img/s are the global batch's.
+    the loss, the metrics and the img/s are the global batch's. ``spatial``:
+    the image H split over the mesh's 'spatial' axis where it divides.
     """
     device = _device(state)
+    sharded = mesh is not None and shards_h(mesh, img_size, spatial)
+    hs = h_rows(mesh, img_size) if sharded else slice(None)
     state.generator.manual_seed(fold_seed(seed, epoch, DROPOUT_STREAM))
     cm = ConfusionAccumulator.init(num_classes, device)
     total = torch.zeros((), dtype=torch.float32, device=device)
@@ -116,14 +135,14 @@ def train_one_epoch(
             x, y = apply_params(xi, mi, {k: v[rows] for k, v in params.items()}, img_size)
         else:
             x, y = eval_pipeline(xi, mi, img_size)
-        state, loss, cm = train_step(state, x, y, cm, num_classes=num_classes, mesh=mesh,
-                                     global_rows=n)
+        state, loss, cm = train_step(state, x[:, hs], y[:, hs], cm, num_classes=num_classes,
+                                     mesh=mesh, global_rows=n, spatial=sharded)
         total += loss
         n_images += images.shape[0]
         if log_every and (bi + 1) % log_every == 0:
             print(f"  step {bi + 1}: loss={float(loss):.4f}")
     if mesh is not None:
-        dist.all_reduce(cm, group=data_group(mesh))
+        dist.all_reduce(cm, group=sum_group(mesh, sharded))
     total_loss = float(total)  # the epoch's one host sync
     seconds = time.perf_counter() - t0
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}
@@ -140,6 +159,7 @@ def evaluate(
     task: str = "binary",
     mesh=None,
     cross_host: bool = False,
+    spatial: bool = False,
 ):
     """Evaluate over the loader's numpy batches with the model's eval
     forward. Returns (total CE loss, metrics).
@@ -155,12 +175,17 @@ def evaluate(
     all-reduce at the end (``eval_totals``), so the result is one
     process's. ``cross_host``: each rank's loader is its own shard,
     evaluated whole; JAX's ``_allreduce_eval`` sums (matrix, loss, HD95
-    sums) over the ranks (the default group, or ``mesh``'s data axis)."""
+    sums) over the ranks (the default group, or ``mesh``'s data axis).
+    ``spatial``: with ``mesh`` (not ``cross_host``, which evaluates whole
+    images as JAX's does), each rank evaluates its block of the image H
+    where it divides, and the sums go over the world."""
     device = _device(state)
     cm = ConfusionAccumulator.init(num_classes, device)
     terms = []  # each batch's (CE numerator, denominator)
     hd_sum, hd_cnt = 0.0, 0
     split = mesh is not None and not cross_host
+    sharded = split and shards_h(mesh, img_size, spatial)
+    hs = h_rows(mesh, img_size) if sharded else slice(None)
     for images, masks in loader:
         rows = shard_rows(mesh, images.shape[0]) if split else slice(0, images.shape[0])
         if rows.start == rows.stop:  # a ragged tail left this rank no row
@@ -168,17 +193,16 @@ def evaluate(
             continue
         x, y = eval_pipeline(_to_device(images[rows], device), _to_device(masks[rows], device),
                              img_size)
-        nd, cm, preds = eval_step(state, x, y, cm, num_classes=num_classes)
-        terms.append(nd)
-        if compute_hd95:
-            for p, t in zip(preds.cpu().numpy(), y.cpu().numpy()):
-                v = hausdorff_distance_95(p == 1, t == 1)
-                if not np.isnan(v):
-                    hd_sum += v
-                    hd_cnt += 1
+        x, y = x[:, hs], y[:, hs]
+        with shard_context(mesh, sharded):
+            nd, cm, preds = eval_step(state, x, y, cm, num_classes=num_classes)
+            terms.append(nd)
+            if compute_hd95:
+                for v in hd95_values(preds, y):
+                    hd_sum, hd_cnt = hd_sum + v, hd_cnt + 1
     group = data_group(mesh) if mesh is not None else None
     cm, total_loss, hd_sum, hd_cnt = eval_totals(cm, terms, hd_sum, hd_cnt,
-                                                 group if split else None)
+                                                 sum_group(mesh, sharded) if split else None)
     cm, total_loss, hd_sum, hd_cnt = _allreduce_eval(cm, total_loss, hd_sum, hd_cnt,
                                                      cross_host, num_classes, group)
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}

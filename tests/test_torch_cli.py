@@ -304,12 +304,27 @@ def test_serving_evaluate_reports_hd95():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed", "True", "--n_spatial", "2"], "A8"), (["--n_spatial", "2"], "A8"),
+    (["--distributed", "True", "--n_spatial", "2"], "must divide the world size 1"),
+    (["--distributed", "True", "--n_spatial", "3"], "must divide the world size 1"),
 ])
 def test_unported_flags_are_refused(tmp_path, flags, item):
+    """Every flag is ported; what is refused is a 'spatial' axis that does
+    not divide the ranks (one process here: no launcher), as JAX refuses
+    one that does not divide the devices, before anything is written."""
     with pytest.raises(SystemExit, match=item):
         cli.main(_argv(tmp_path, 1) + flags)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("img,world,want", [(256, 2, 1), (512, 2, 2), (512, 3, 1),
+                                            (512, 1, 1), (640, 4, 2)])
+def test_n_spatial_auto_is_jax_rule(img, world, want):
+    """--n_spatial 0 (the default) is JAX's 'auto': 2 at --img_size >= 512
+    on an even world size, else 1; a given value is kept."""
+    args = cli.build_parser().parse_args(["--img_size", str(img)])
+    assert cli.resolve_n_spatial(args, world) == want
+    args.n_spatial = world
+    assert cli.resolve_n_spatial(args, world) == world
 
 
 def test_device_cuda_without_a_card_is_refused(tmp_path):

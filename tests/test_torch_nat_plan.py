@@ -37,10 +37,13 @@ cs = _chip_smoke()
 
 DTYPES = [torch.float32, torch.bfloat16]
 # (B, H, W, heads, hd): chip_smoke.py's check shapes, the four 256^2 stages
-# at B=16 (timed), the card tests' shapes
+# at B=16 (timed), the four NAT slabs a rank of a (1 x 2) spatial mesh
+# gives the kernels at 512^2 (H = 257, 129, 65, 33; W.C = 6144), the card
+# tests' shapes
 SHAPES = sorted(set(
     [(B, H, W, cs.HEADS, C // cs.HEADS) for B, H, W, C in cs.CHECK_SHAPES]
     + [(cs.BATCH, H, W, cs.HEADS, C // cs.HEADS) for H, W, C in cs.STAGES_256]
+    + [(cs.SPATIAL_BATCH, H, W, cs.HEADS, C // cs.HEADS) for H, W, C in cs.SPATIAL_SLABS]
     + [(2, 3, 3, 2, 2), (1, 28, 28, 12, 3), (2, 9, 17, 3, 1), (1, 16, 8, 2, 8), (1, 5, 7, 1, 16),
        (2, 32, 8, 3, 1), (2, 16, 8, 2, 4), (2, 8, 8, 2, 2), (2, 16, 4, 1, 4), (2, 28, 8, 2, 3),
        (2, 28, 28, 3, 2), (2, 32, 32, 12, 8), (2, 64, 64, 12, 4), (1, 9, 10, 3, 2),
@@ -144,6 +147,21 @@ def test_the_model_stages_take_the_vectorised_variants(dtype, kind, H, W, C):
     # a block for each of the card's 132 SMs at least
     gx, gy, gz = plan["grid"]
     assert gx * gy * gz >= 132
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("H,W,C", cs.SPATIAL_SLABS)
+def test_the_spatial_slabs_take_the_vectorised_variants(dtype, kind, H, W, C):
+    """The halo slabs of a sharded 512^2 step (a block's rows and one of the
+    neighbour's, odd H): 'vec', as at every model stage, with a ragged last
+    tile row."""
+    B = cs.SPATIAL_BATCH
+    plan = nat_plan(B, H, W, cs.HEADS, C // cs.HEADS, dtype, kind)
+    assert plan["variant"] == "vec" and W * C == 6144
+    rows = plan["tile"][0]
+    gx, gy, gz = plan["grid"]
+    assert H % rows and gy == -(-H // rows) and gx * gy * gz >= 132
 
 
 @pytest.mark.parametrize("B,H,W,heads", [(1, 3, 3, 2), (2, 7, 9, 3), (1, 12, 37, 2),

@@ -175,9 +175,10 @@ def test_two_rank_step_matches_jax_and_one_process(variables, jax_step, ranks, b
 def test_collectives_a_step(ranks):
     """Each train-mode BatchNorm all-reduces its sums once in the forward and
     once in the backward; rc_remat's recompute repeats the 16 ReparamConv
-    blocks' 80; the loss takes two (CE, Dice); the gradients one."""
+    blocks' 80; the loss takes two (CE, Dice); the gradients one. No halo
+    exchange: the 'spatial' axis has one rank."""
     bns = 16 * 5 + 4
-    want = {"forward": bns + 16 * 5 + 2, "backward": bns + 2, "grads": 1}
+    want = {"forward": bns + 16 * 5 + 2, "backward": bns + 2, "grads": 1, "halo": 0}
     for r in ranks:
         assert r["step_xla"]["collectives"] == want
         assert r["step_fused"]["collectives"] == want
@@ -332,7 +333,8 @@ def test_shard_rows_is_numpy_array_split(n, world):
 def test_one_process_is_a_no_op(monkeypatch):
     """Without a launcher's environment init_distributed_mode does nothing,
     as JAX's; rank 0 of 1, reduce_value gives its argument back, cleanup
-    does nothing; make_mesh needs a group and refuses n_spatial > 1."""
+    does nothing; make_mesh needs a group, with or without a 'spatial'
+    axis."""
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "SLURM_PROCID", "SLURM_NTASKS"):
         monkeypatch.delenv(k, raising=False)
     dist_utils.init_distributed_mode("cpu")
@@ -344,7 +346,7 @@ def test_one_process_is_a_no_op(monkeypatch):
     dist_utils.cleanup()
     with pytest.raises(RuntimeError, match="init_distributed_mode"):
         make_mesh(device_type="cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(RuntimeError, match="init_distributed_mode"):
         make_mesh(n_spatial=2, device_type="cpu")
 
 

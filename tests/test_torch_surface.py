@@ -124,6 +124,7 @@ for name in ("jax", "jaxlib", "flax", "optax", "lmnet_tpu"):
     sys.modules[name] = None
 import lmnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lmnet_tpu_torch.__path__, "lmnet_tpu_torch.")]
+assert {"lmnet_tpu_torch.parallel.spatial", "lmnet_tpu_torch.parallel.dryrun"} <= set(names)
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
