@@ -203,9 +203,20 @@ Phases, each printing a line, any failure raising (exit code != 0):
      eval and serving rules; ms a step of one process and of the two
      ranks, and a step's halo exchanges and all-reduces; then
      ``parallel.dryrun.dryrun_multichip(4, device='cuda')``: four gloo
-     ranks on the card, (2 x 2). B1's and B2's ``launches_by_path`` gain
-     'spatial' (the two ranks' counters summed) and their entries
-     ``ms_by_slab``.
+     ranks on the card, (2 x 2). The row-window kernels: B4, B5,
+     B6 and B7 on each rank's slab at every shape the 512^2 path gives
+     them (the ReparamConv blocks' five, h = 256 .. 32 rows, W = 512 ..
+     64; the upsamples' four), bf16 and float32, against their plain
+     versions on the slab and against the same kernel on the whole map
+     (rows, and the ranks' sums added), rank 0's bf16 slab calls timed
+     beside their byte bounds; on the ranks, the bf16 512^2 B=4 step with
+     rc_train_backend='fused' and the flat upsample (B1, B2, B5, B6, B7
+     on every rank) against one process by the bf16 rule, the fp32 64^2
+     step by the fp32 rule, and serving_evaluate with rc_backend 'flat'
+     and 'pallas' (B5 or B4, B1, B7) by the serving rule, each path's
+     launches a rank checked. B1's, B2's, B4's, B5's, B6's and B7's
+     ``launches_by_path`` gain 'spatial' (the two ranks' counters summed)
+     and their entries ``ms_by_slab``.
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -902,16 +913,18 @@ def _dt(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def check_dw(label, e, k, b, t, sums, C) -> float:
-    """Hold B5's (t, sums) against the plain version on e upcast to float32:
+def check_dw(label, e, k, b, t, sums, C, top=0, rows=None) -> float:
+    """Hold B5's (t, sums) against the plain version on e upcast to float32
+    (at the row window ``top``, ``rows`` of a slab e):
     t f32 within 1e-5 (1 + |ref|), bf16 within one rounding of the stored
     value (2^-8 |ref| + 1e-5); each channel sum (both from the float32 t)
     within 1e-5 of the sum of |t| + 1e-6. Print one line; raise on a
     mismatch. Returns the max abs error of t."""
     from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat_plain
 
-    B, H, WC = e.shape
-    ref, ref_sums = dw_gelu_flat_plain(e.float(), k, b, C)
+    B, _, WC = e.shape
+    ref, ref_sums = dw_gelu_flat_plain(e.float(), k, b, C, top, rows)
+    H = ref.shape[1]
     err = (t.float() - ref).abs()
     bound = 1e-5 * (1 + ref.abs()) if e.dtype == torch.float32 else 2**-8 * ref.abs() + 1e-5
     serr = (sums - ref_sums).abs()
@@ -925,14 +938,17 @@ def check_dw(label, e, k, b, t, sums, C) -> float:
     return err.max().item()
 
 
-def check_stats(label, e, ks, got, C) -> float:
+def check_stats(label, e, ks, got, C, top=0, rows=None) -> float:
     """Hold B6's (4, 2, C) statistics against the plain version on e upcast
-    to float32: each within 1e-5 of the matching sum of |y| (or of y^2) +
-    1e-6. Print one line; raise on a mismatch. Returns the max abs error."""
+    to float32 (at the row window ``top``, ``rows`` of a slab e): each
+    within 1e-5 of the matching sum of |y| (or of y^2) + 1e-6. Print one
+    line; raise on a mismatch. Returns the max abs error."""
     from lmnet_tpu_torch.ops import rc_train
 
-    B, H, WC = e.shape
-    ys = rc_train._branch_outputs(e.float(), [k.float() for k in ks], C, torch.float32)
+    B, _, WC = e.shape
+    ys = rc_train._branch_outputs(e.float(), [k.float() for k in ks], C, torch.float32, top,
+                                  rows)
+    H = ys[0].shape[2]
     ref = torch.stack([torch.stack([y.sum(dim=(0, 2, 3)), y.square().sum(dim=(0, 2, 3))])
                        for y in ys])
     scale = torch.stack([torch.stack([y.abs().sum(dim=(0, 2, 3)), y.square().sum(dim=(0, 2, 3))])
@@ -948,7 +964,7 @@ def check_stats(label, e, ks, got, C) -> float:
     return err.max().item()
 
 
-def check_rc(label, x, w, got) -> float:
+def check_rc(label, x, w, got, top=0, rows=None) -> float:
     """Hold B4's output against the plain block. float32: within 1e-4 (1 +
     max|ref|) of the float32 plain version (sums of up to 192 + 96 products
     and the SE scale in another order). bf16 (tensor-core products), two
@@ -958,12 +974,14 @@ def check_rc(label, x, w, got) -> float:
     that version's distance from the float32 plain version, + 2^-8
     max|ref|, of the float32 plain version. Print one line with the
     distances; raise on a mismatch. Returns the max abs error against the
-    plain version of the kernel's own numerics."""
+    plain version of the kernel's own numerics. At a row window (``top``,
+    ``rows`` of a slab x) the block's SE is the slab's rows' own mean."""
     from lmnet_tpu_torch.ops.rc_kernel import fused_reparam_conv_plain
 
-    ref = fused_reparam_conv_plain(x.float(), w)
+    ref = fused_reparam_conv_plain(x.float(), w, top, rows)
     m = ref.abs().max().item()
-    B, H, W, Cin = x.shape
+    B, _, W, Cin = x.shape
+    H = ref.shape[1]
     shape = (f"B={B} H={H} W={W} Cin={Cin} E={w['we'].shape[0]} Cout={w['wp'].shape[0]} "
              f"{_dt(x.dtype)}")
     if x.dtype == torch.float32:
@@ -971,7 +989,7 @@ def check_rc(label, x, w, got) -> float:
         ok = err <= 1e-4 * (1 + m)
         msg = f"max_abs_err={err:.3e} on outputs of max {m:.3e} (tol 1e-4*(1+max|ref|))"
     else:
-        rounded = fused_reparam_conv_plain(x, w).float()
+        rounded = fused_reparam_conv_plain(x, w, top, rows).float()
         err = (got.float() - rounded).abs().max().item()
         d_f32 = (got.float() - ref).abs().max().item()
         dist = (rounded - ref).abs().max().item()
@@ -1123,7 +1141,7 @@ def phase_rc_kernels(dev) -> dict:
             got = fused_reparam_conv(x, w)
             worst["rc_fused"] = max(worst["rc_fused"], check_rc("phase 10", x, w, got))
             if i == 1:  # phase 1's channel sums, twice on the same inputs
-                same = torch.equal(rc_kernel._phase1(x, w)[0], rc_kernel._phase1(x, w)[0])
+                same = torch.equal(rc_kernel.rc_phase1(x, w), rc_kernel.rc_phase1(x, w))
                 print(f"phase 10: rc_fused phase-1 sums twice on the same inputs B={B} H={H} "
                       f"W={W} Cin={Cin} E={E} {_dt(dtype)}: bitwise equal: {same}")
                 check(same, "rc_fused's phase-1 sums are not bitwise repeatable")
@@ -1578,14 +1596,17 @@ def b3_variant(B, H, W, C, dtype) -> str:
             f"{p['heads_per_block']} heads, {p['blocks']} blocks / {p['tiles']} tiles")
 
 
-def up_variant(x) -> str:
-    """B7's launch plan for x in a few words: variant, tile, blocks ('n/a'
-    for a package without the plan)."""
+def up_variant(x, rows=None) -> str:
+    """B7's launch plan for x (a slab of which it writes the outputs of
+    ``rows`` rows) in a few words: variant, tile, blocks ('n/a' for a
+    package without the plan)."""
     from lmnet_tpu_torch.ops import upsample_flat
 
     if not hasattr(upsample_flat, "upsample_plan"):
         return "n/a"
-    p = upsample_flat.upsample_plan(*x.shape, x.dtype)
+    B, Hs, W, C = x.shape
+    p = (upsample_flat.upsample_plan(B, Hs, W, C, x.dtype) if rows is None
+         else upsample_flat.upsample_plan(B, rows, W, C, x.dtype, Hs))
     gx, gy, gz = p["grid"]
     copies = f", {p['copies']} TMA copies a tile" if p["variant"] == "tma" else ""
     return f"{p['variant']}, tile {p['tile'][0]}x{p['tile'][1]}, {gx * gy * gz} blocks{copies}"
@@ -1762,17 +1783,19 @@ UPSAMPLE_SHAPES_288 = [(BATCH, 18, 18, 192), (BATCH, 36, 36, 96), (BATCH, 72, 72
                        (BATCH, 144, 144, 24)]
 
 
-def check_up(label, got, x) -> float:
-    """Hold B7's output against the plain version on x upcast to float32:
+def check_up(label, got, x, window=()) -> float:
+    """Hold B7's output against the plain version on x upcast to float32 (at
+    the row window (top, rows, Hg, row0) of a slab x):
     f32 within 1e-6 (1 + |ref|), bf16 within one rounding of the stored
     value, 2^-8 |ref| + 1e-6. Print one line; raise on a mismatch."""
     from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat_plain
 
-    ref = upsample2x_flat_plain(x.float())
+    ref = upsample2x_flat_plain(x.float(), *window)
     err = (got.float() - ref).abs()
     bound = 1e-6 * (1 + ref.abs()) if x.dtype == torch.float32 else 2**-8 * ref.abs() + 1e-6
     ok = bool((err <= bound).all()) and got.dtype == x.dtype and got.shape == ref.shape
-    print(f"{label}: upsample_flat vs plain {tuple(x.shape)} {_dt(x.dtype)} [{up_variant(x)}]: "
+    print(f"{label}: upsample_flat vs plain {tuple(x.shape)} {_dt(x.dtype)} "
+          f"[{up_variant(x, window[1] if window else None)}]: "
           f"max_abs_err={err.max().item():.3e} {'ok' if ok else 'FAIL'}")
     check(ok, f"upsample_flat disagrees with plain at {tuple(x.shape)} {x.dtype}")
     return err.max().item()
@@ -2678,11 +2701,17 @@ def _steps_ms(fn, n: int, dev) -> float:
 
 
 def _kernel_counters():
+    """The launch counters of B1, B2, B5, B6 (phase 20's kernels), B4 and
+    B7."""
     from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
     from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
+    from lmnet_tpu_torch.ops.rc_kernel import fused_reparam_conv
     from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
+    from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat
 
-    return dict(zip(DDP_KERNELS, (nat_flat, nat_flat_bwd, dw_gelu_flat, rc_branch_stats)))
+    return dict(zip(DDP_KERNELS + ("rc_fused", "upsample_flat"),
+                    (nat_flat, nat_flat_bwd, dw_gelu_flat, rc_branch_stats, fused_reparam_conv,
+                     upsample2x_flat)))
 
 
 def _zero_counters() -> None:
@@ -3007,7 +3036,8 @@ def phase_ddp(dev, card_line) -> dict:
     for r in ranks:
         check(all(r["launches"][k] > 0 for k in DDP_KERNELS),
               f"rank {r['rank']} launched {r['launches']}: every kernel of the path must run")
-        check(r["step_launches"] == {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32},
+        check({k: r["step_launches"][k] for k in DDP_KERNELS}
+              == {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32},
               f"rank {r['rank']}'s bf16 step launched {r['step_launches']}")
     # bf16 256^2, B=16 (8 a rank): against one process by the bf16 rule
     one_bf16 = _ddp_step(_ddp_model(dev, torch.bfloat16), x, y)
@@ -3094,6 +3124,14 @@ SPATIAL_EVAL_IMAGES = 5  # batches of 2, 2, 1
 # (H, W, C) of the NAT slabs each rank of the (1 x 2) mesh gives B1 and B2 at
 # 512^2: its 256 / 128 / 64 / 32 rows and one row of its neighbour; W.C = 6144
 SPATIAL_SLABS = [(257, 512, 12), (129, 256, 24), (65, 128, 48), (33, 64, 96)]
+# (h, W, Cin, E, Cout) of the 16 ReparamConv blocks' five shapes on a rank of
+# that mesh at 512^2 (its 256 / 128 / 64 / 32 rows): B4 takes them on slabs of
+# h + 2 rows (no row past the global edge), B5 and B6 on slabs of h + 4
+SPATIAL_RC = [(256, 512, 3, 24, 12), (256, 512, 12, 24, 12), (128, 256, 24, 48, 24),
+              (64, 128, 48, 96, 48), (32, 64, 96, 192, 96)]
+# (h, W, C) of the 7 upsamples' four input shapes on a rank at 512^2: B7 takes
+# them on slabs of h + 1 rows
+SPATIAL_UP = [(16, 32, 192), (32, 64, 96), (64, 128, 48), (128, 256, 24)]
 
 
 def _spatial_model(dev, dtype):
@@ -3120,6 +3158,41 @@ def _spatial_evals(dev, mesh=None):
     sv = serving_evaluate(state.model.state_dict(), loader(), 2, SPATIAL_IMG, device=dev,
                           mesh=mesh, spatial=True)
     return ev, sv
+
+
+def _spatial_fused_model(dev, dtype):
+    """Phase 21's model with rc_train_backend='fused' (B6, B5): the same
+    seeded weights as ``_spatial_model``."""
+    return _train_model(dev, dtype, "flat", "fused", seed=SPATIAL_SEED)
+
+
+def _spatial_serves(dev, mesh=None):
+    """serving_evaluate (bf16) of the seeded float32 model over the eval set
+    with rc_backend 'flat' (B5) and 'pallas' (B4), the upsample backend
+    'flat' (B7), H over the mesh's 'spatial' axis: {rc: ((loss, metrics),
+    the launches it made)}."""
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.ops import resize
+    from lmnet_tpu_torch.serve import serving_evaluate
+    from lmnet_tpu_torch.train import create_train_state
+
+    state = create_train_state(_spatial_model(dev, torch.float32),
+                               (2, SPATIAL_IMG, SPATIAL_IMG, 3), seed=0, device=dev)
+    out = {}
+    resize.UPSAMPLE_BACKEND = "flat"
+    try:
+        for rc in ("flat", "pallas"):
+            _zero_counters()
+            sv = serving_evaluate(state.model.state_dict(),
+                                  make_loader(SyntheticDataset(SPATIAL_EVAL_IMAGES, SPATIAL_IMG,
+                                                               "val", seed=12), 2),
+                                  2, SPATIAL_IMG, device=dev, mesh=mesh, spatial=True,
+                                  rc_backend=rc)
+            _sync(dev)
+            out[rc] = (sv, _read_counters())
+    finally:
+        resize.UPSAMPLE_BACKEND = "einsum"
+    return out
 
 
 def spatial_rank_main(out_dir, device_type: str = "cuda") -> int:
@@ -3157,6 +3230,25 @@ def spatial_rank_main(out_dir, device_type: str = "cuda") -> int:
     _sync(dev)
     got["launches"] = _read_counters()
 
+    # the row-window kernels' path: the 'fused' + 'flat' upsample steps (B6,
+    # B5, B7 on the rank's slabs), then serving through B5 and through B4
+    from lmnet_tpu_torch.ops import resize
+
+    resize.UPSAMPLE_BACKEND = "flat"
+    _zero_counters()
+    before = dict(pbatch.COUNTS)
+    got["fused_bf16"] = _ddp_step(_spatial_fused_model(dev, torch.bfloat16), x, y, mesh,
+                                  spatial=True)
+    _sync(dev)
+    got["fused_collectives"] = {k: pbatch.COUNTS[k] - before[k] for k in before}
+    got["fused_step_launches"] = _read_counters()
+    got["fused_fp32"] = _ddp_step(_spatial_fused_model(dev, torch.float32), x32, y32, mesh,
+                                  spatial=True)
+    _sync(dev)
+    resize.UPSAMPLE_BACKEND = "einsum"
+    got["fused_launches"] = _read_counters()
+    got["serves"] = _spatial_serves(dev, mesh)
+
     # ms a step in two turns: 3 steps after a warm-up, CUDA events
     state = create_train_state(_spatial_model(dev, torch.bfloat16),
                                (SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3), seed=0, device=dev)
@@ -3168,7 +3260,11 @@ def spatial_rank_main(out_dir, device_type: str = "cuda") -> int:
     print(f"phase 21: rank {rank}| {got['backend']} mesh {got['mesh']}, B1/B2 launched "
           f"{got['launches']['nat_fwd']}/{got['launches']['nat_bwd']} (bf16 step "
           f"{got['step_launches']['nat_fwd']}/{got['step_launches']['nat_bwd']}), collectives "
-          f"in the bf16 step {json.dumps(got['collectives'])}, ms a step {got['ms']}", flush=True)
+          f"in the bf16 step {json.dumps(got['collectives'])}, ms a step {got['ms']}; 'fused' + "
+          f"flat upsample steps launched {json.dumps(got['fused_launches'])} (bf16 step "
+          f"{json.dumps(got['fused_step_launches'])}, collectives "
+          f"{json.dumps(got['fused_collectives'])}); serving launched "
+          f"{json.dumps({rc: v[1] for rc, v in got['serves'].items()})}", flush=True)
     torch.save(got, Path(out_dir) / f"rank{rank}.pt")
     dist_utils.cleanup()
     return 0
@@ -3214,6 +3310,199 @@ def _spatial_slab_kernels(dev, card_line) -> dict:
     return out
 
 
+def _fp32_rule(label, got, one) -> None:
+    """A float32 2-rank step ``got`` against the one-process step ``one``
+    (loss, gradients, state, confusion matrix): loss rel 1e-5, each gradient
+    ||d|| <= 1e-3 ||ref|| + 1e-5 max||g||, running statistics rtol 1e-4 /
+    atol 1e-5 max, the confusion matrix equal."""
+    lo, go, so, co = one
+    lg, gg, sg, cg = got
+    big = max(v.norm().item() for v in go.values())
+    worst_g = max((gg[k] - go[k]).norm().item() / (1e-3 * go[k].norm().item() + 1e-5 * big)
+                  for k in go)
+    worst_s = max(float(((sg[k] - so[k]).abs()
+                         / (1e-4 * so[k].abs() + 1e-5 * so[k].abs().max().item())).max())
+                  for k in so if "running" in k)
+    ok = (abs(lg - lo) <= 1e-5 * abs(lo) and worst_g <= 1.0 and worst_s <= 1.0
+          and torch.equal(cg, co))
+    print(f"phase 21: {label}, 2 ranks x 32 rows against one process: loss {lg:.7f} vs "
+          f"{lo:.7f} (tol rel 1e-5); {len(go)} gradients worst ||2r-1p|| / (1e-3 ||1p|| + "
+          f"1e-5 max||g||) = {worst_g:.3e}; running statistics worst {worst_s:.3e} (tol 1); "
+          f"confusion matrix equal {torch.equal(cg, co)} {'ok' if ok else 'FAIL'}")
+    check(ok, f"the {label} on 2 ranks disagrees with one process")
+
+
+def _serving_rule(label, got, one) -> None:
+    """The 2-rank serving_evaluate (loss, metrics) against one process's, by
+    the serving rule: loss within 2 %, argmax moved on at most 2.5 % of the
+    pixels, every metric within 0.02."""
+    (gsl, gsm), (sl, sm) = got, one
+    pixels = SPATIAL_EVAL_IMAGES * SPATIAL_IMG * SPATIAL_IMG
+    flips = abs(gsm["accuracy"] - sm["accuracy"]) * pixels
+    ok = (abs(gsl - sl) <= 0.02 * abs(sl) and flips <= 0.025 * pixels
+          and all(abs(gsm[k] - sm[k]) <= 0.02 for k in sm))
+    print(f"phase 21: {label}: 2 ranks loss {gsl:.6f} vs one process {sl:.6f} (tol 2 %), "
+          f"{flips:.0f} pixels moved (tol 2.5 % of {pixels}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"the sharded {label} disagrees with one process")
+
+
+def _rank_slab(x, rank, size, halo, edges):
+    """Rank ``rank`` of ``size``'s slab of the whole map x (rows on axis 1)
+    as its exchange makes it: ``halo`` rows of each neighbour, zero rows
+    past the global edges with ``edges``, else none. Returns (slab, top,
+    rows, row0)."""
+    h = x.shape[1] // size
+    lo, hi = rank * h - halo, (rank + 1) * h + halo
+    part = x[:, max(lo, 0):min(hi, x.shape[1])]
+    if edges:
+        part = torch.cat([x.new_zeros((x.shape[0], max(-lo, 0), *x.shape[2:])), part,
+                          x.new_zeros((x.shape[0], max(hi - x.shape[1], 0), *x.shape[2:]))],
+                         dim=1)
+        return part, halo, h, rank * h
+    return part.contiguous(), rank * h - max(lo, 0), h, rank * h
+
+
+def _rows_vs_whole(label, got, want) -> float:
+    """A rank's output rows of a row-window kernel against the same kernel's
+    rows on the whole map: float32 within 1e-6 max|ref|, bf16 within one
+    rounding of the stored value (2^-8 |ref| + 1e-6 max|ref|). Prints one
+    line; raises on a mismatch. Returns the max abs error."""
+    big = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs()
+    bound = (1e-6 * big if want.dtype == torch.float32
+             else 2**-8 * want.float().abs() + 1e-6 * big)
+    ok = got.shape == want.shape and bool((err <= bound).all())
+    print(f"{label}: rows against the whole map's kernel: max_abs_err={err.max().item():.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the slab's rows disagree with the whole map's")
+    return err.max().item()
+
+
+def _sums_vs_whole(label, got, want, scale) -> float:
+    """The ranks' sums added against the whole map's kernel: within 1e-5
+    scale + 1e-6 (scale: the sum of |t|, or the largest statistic)."""
+    err = (got - want).abs()
+    ok = bool((err <= 1e-5 * scale + 1e-6).all())
+    print(f"{label}: the 2 ranks' sums added against the whole map's kernel: "
+          f"max_abs_err={err.max().item():.3e} (tol 1e-5 scale + 1e-6) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the ranks' sums do not add up to the whole map's")
+    return err.max().item()
+
+
+def _spatial_window_kernels(dev, card_line) -> dict:
+    """B4, B5, B6 and B7 on each rank's slab of the (1 x 2) mesh at 512^2
+    (B=4): the ReparamConv blocks' five shapes (SPATIAL_RC) and the
+    upsamples' four (SPATIAL_UP), bf16 and float32. Each slab call against
+    the plain version on the same slab (``check_dw``, ``check_stats``,
+    ``check_rc`` (its SE the slab's own), ``check_up``); each rank's output
+    rows against the same kernel on the whole map (B4's phase 2 with the
+    whole map's SE scale) and the two ranks' sums added against the whole
+    map's; rank 0's bf16 slab calls timed (CUDA events) beside their byte
+    bounds. Returns {kernel: [slab entries]}."""
+    from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat, se_scale
+    from lmnet_tpu_torch.ops.rc_kernel import rc_phase1, rc_phase2
+    from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
+    from lmnet_tpu_torch.ops.upsample_flat import _launch
+
+    B = SPATIAL_BATCH
+    out = {"rc_fused": [], "rc_dw_gelu": [], "rc_stats": [], "upsample_flat": []}
+    for i, (h, W, Cin, E, Cout) in enumerate(SPATIAL_RC):
+        H = 2 * h
+        w = rc_weights(2100 + i, Cin, E, Cout, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator().manual_seed(2110 + i)
+            e = torch.randn(B, H, W * E, generator=g).to(dev, dtype)
+            k = (torch.randn(E, 1, 5, 5, generator=g) * 0.2).to(dev)
+            b = (torch.randn(E, generator=g) * 0.1).to(dev)
+            ks = [(torch.randn(E, 1, kh, kw, generator=g) * 0.3).to(dev)
+                  for kh, kw in ((5, 5), (3, 3), (3, 1), (1, 3))]
+            x = torch.randn(B, H, W, Cin, generator=g).to(dev, dtype)
+            t, sums = dw_gelu_flat(e, k, b, E)
+            stats = rc_branch_stats(e, *ks, E)
+            s1 = rc_phase1(x, w)
+            sc = se_scale(s1, w, H * W)
+            y = rc_phase2(x, w, sc)
+            errs = {"rc_dw_gelu": 0.0, "rc_stats": 0.0, "rc_fused": 0.0}
+            got_sums = got_stats = got_s1 = 0
+            for r in range(2):
+                lab = f"phase 21: rank {r} slab"
+                es, top, rows, _ = _rank_slab(e, r, 2, 2, edges=True)
+                t_r, s_r = dw_gelu_flat(es, k, b, E, top, rows)
+                errs["rc_dw_gelu"] = max(errs["rc_dw_gelu"],
+                                         check_dw(lab, es, k, b, t_r, s_r, E, top, rows),
+                                         _rows_vs_whole(f"{lab} rc_dw_gelu", t_r,
+                                                        t[:, r * h:(r + 1) * h]))
+                st_r = rc_branch_stats(es, *ks, E, top, rows)
+                errs["rc_stats"] = max(errs["rc_stats"],
+                                       check_stats(lab, es, ks, st_r, E, top, rows))
+                got_sums, got_stats = got_sums + s_r, got_stats + st_r
+                xs, xtop, _, _ = _rank_slab(x, r, 2, 2, edges=False)
+                p1 = rc_phase1(xs, w, xtop, rows)
+                got_s1 = got_s1 + p1
+                own = rc_phase2(xs, w, se_scale(p1, w, rows * W).contiguous(), xtop, rows)
+                errs["rc_fused"] = max(errs["rc_fused"], check_rc(lab, xs, w, own, xtop, rows),
+                                       _rows_vs_whole(f"{lab} rc_fused",
+                                                      rc_phase2(xs, w, sc, xtop, rows),
+                                                      y[:, r * h:(r + 1) * h]))
+                if r == 0 and dtype == torch.bfloat16:
+                    es0, xs0, top0, xtop0 = es, xs, top, xtop
+            shape = f"B={B} h={h} W={W} E={E}"
+            _sums_vs_whole(f"phase 21: rc_dw_gelu {shape} {_dt(dtype)}", got_sums, sums,
+                           t.float().abs().reshape(B, H * W, E).sum(1))
+            _sums_vs_whole(f"phase 21: rc_stats {shape} {_dt(dtype)}", got_stats, stats,
+                           stats.abs().amax(-1, keepdim=True))
+            _sums_vs_whole(f"phase 21: rc_fused phase 1 {shape} {_dt(dtype)}", got_s1, s1,
+                           s1.abs().amax(-1, keepdim=True))
+            if dtype != torch.bfloat16:
+                continue
+            es_b = 2
+            for name, fn, nbytes in (
+                    ("rc_dw_gelu", lambda: dw_gelu_flat(es0, k, b, E, top0, h),
+                     es_b * B * W * E * (es0.shape[1] + h)),
+                    ("rc_stats", lambda: rc_branch_stats(es0, *ks, E, top0, h),
+                     es_b * B * W * E * es0.shape[1]),
+                    ("rc_fused", lambda: rc_phase2(xs0, w, se_scale(
+                        rc_phase1(xs0, w, xtop0, h), w, h * W).contiguous(), xtop0, h),
+                     es_b * B * W * (Cin * xs0.shape[1] + Cout * h))):
+                ms = cuda_ms(fn, iters=10)
+                slab_rows = es0.shape[1] if name != "rc_fused" else xs0.shape[1]
+                out[name].append({"h": h, "slab_rows": slab_rows, "W": W, "Cin": Cin, "E": E,
+                                  "Cout": Cout, "B": B, "ms": ms,
+                                  "bound_ms": nbytes / HBM_RATE * 1e3,
+                                  "max_abs_err": errs[name]})
+                print(f"phase 21: {name} rank 0 slab B={B} rows {slab_rows} -> {h} W={W} "
+                      f"Cin={Cin} E={E} bf16: {ms:.4f} ms eager, byte bound "
+                      f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB) [{card_line}]")
+    for i, (h, W, C) in enumerate(SPATIAL_UP):
+        H = 2 * h
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(B, H, W, C, generator=torch.Generator().manual_seed(2150 + i))
+            x = x.to(dev, dtype)
+            whole = _launch(x)
+            err = 0.0
+            for r in range(2):
+                xs, top, rows, row0 = _rank_slab(x, r, 2, 1, edges=False)
+                window = (top, rows, H, row0)
+                u = _launch(xs, window)
+                err = max(err, check_up(f"phase 21: rank {r} slab", u, xs, window),
+                          _rows_vs_whole(f"phase 21: rank {r} slab upsample_flat", u,
+                                         whole[:, 2 * row0:2 * (row0 + rows)]))
+                if r == 0:
+                    xs0, window0 = xs, window
+            if dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: _launch(xs0, window0), iters=10)
+            nbytes = 2 * B * W * C * (xs0.shape[1] + 4 * h)
+            out["upsample_flat"].append({"h": h, "slab_rows": xs0.shape[1], "W": W, "C": C,
+                                         "B": B, "variant": up_variant(xs0, h), "ms": ms,
+                                         "bound_ms": nbytes / HBM_RATE * 1e3,
+                                         "max_abs_err": err})
+            print(f"phase 21: upsample_flat rank 0 slab B={B} rows {xs0.shape[1]} -> {2 * h} "
+                  f"W={W} C={C} bf16: {ms:.4f} ms eager, byte bound "
+                  f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB) [{card_line}]")
+    return out
+
+
 def phase_spatial(dev, card_line) -> dict:
     """Phase 21; returns the two ranks' B1 and B2 launches (summed), B1's and
     B2's slab checks and times, and the phase's numbers."""
@@ -3228,6 +3517,7 @@ def phase_spatial(dev, card_line) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     slabs = _spatial_slab_kernels(dev, card_line)
+    windows = _spatial_window_kernels(dev, card_line)
 
     x, y = _batch(SPATIAL_BATCH, SPATIAL_IMG, "val", 4, dev)
     state = create_train_state(_spatial_model(dev, torch.bfloat16),
@@ -3277,41 +3567,80 @@ def phase_spatial(dev, card_line) -> dict:
           f"and fp32 steps: {same} {'ok' if same else 'FAIL'}")
     check(same, "the ranks' parameters differ after the sharded step")
 
-    # fp32 64^2, B=2 (32 rows a rank): loss rel 1e-5, each gradient ||d|| <=
-    # 1e-3 ||ref|| + 1e-5 max||g||, running statistics rtol 1e-4 / atol 1e-5 max
     x32, y32 = _batch(2, 64, "val", 3, dev)
-    lo, go, so, co = _ddp_step(_spatial_model(dev, torch.float32), x32, y32)
-    lg, gg, sg, cg = ranks[0]["fp32"]
-    big = max(v.norm().item() for v in go.values())
-    worst_g = max((gg[k] - go[k]).norm().item() / (1e-3 * go[k].norm().item() + 1e-5 * big)
-                  for k in go)
-    worst_s = max(float(((sg[k] - so[k]).abs()
-                         / (1e-4 * so[k].abs() + 1e-5 * so[k].abs().max().item())).max())
-                  for k in so if "running" in k)
-    ok = (abs(lg - lo) <= 1e-5 * abs(lo) and worst_g <= 1.0 and worst_s <= 1.0
-          and torch.equal(cg, co))
-    print(f"phase 21: fp32 64^2 B=2 step, 2 ranks x 32 rows against one process: loss {lg:.7f} "
-          f"vs {lo:.7f} (tol rel 1e-5); {len(go)} gradients worst ||2r-1p|| / (1e-3 ||1p|| + "
-          f"1e-5 max||g||) = {worst_g:.3e}; running statistics worst {worst_s:.3e} (tol 1); "
-          f"confusion matrix equal {torch.equal(cg, co)} {'ok' if ok else 'FAIL'}")
-    check(ok, "the fp32 sharded step disagrees with one process")
+    _fp32_rule("fp32 64^2 B=2 step", ranks[0]["fp32"],
+               _ddp_step(_spatial_model(dev, torch.float32), x32, y32))
 
     # evaluate (fp32, HD95) and serving_evaluate (bf16, B1 on each slab)
     (el, em), (sl, sm) = _spatial_evals(dev)
     (gel, gem), (gsl, gsm) = ranks[0]["evals"]
     pixels = SPATIAL_EVAL_IMAGES * SPATIAL_IMG * SPATIAL_IMG
     ev_flips = abs(gem["accuracy"] - em["accuracy"]) * pixels
-    sv_flips = abs(gsm["accuracy"] - sm["accuracy"]) * pixels
     hd_ok = (np.isnan(gem["hd95"]) and np.isnan(em["hd95"])) or abs(gem["hd95"] - em["hd95"]) <= 1
-    ok = (abs(gel - el) <= 1e-5 * abs(el) and ev_flips <= 1e-4 * pixels and hd_ok
-          and abs(gsl - sl) <= 0.02 * abs(sl) and sv_flips <= 0.025 * pixels
-          and all(abs(gsm[k] - sm[k]) <= 0.02 for k in sm))
+    ok = abs(gel - el) <= 1e-5 * abs(el) and ev_flips <= 1e-4 * pixels and hd_ok
     print(f"phase 21: evaluate fp32 over {SPATIAL_EVAL_IMAGES} images (batches 2, 2, 1): 2 ranks "
           f"loss {gel:.6f} vs {el:.6f} (tol rel 1e-5), accuracy moved by {ev_flips:.0f} pixels "
-          f"(tol 1e-4 of {pixels}), HD95 {gem['hd95']:.4f} vs {em['hd95']:.4f} (tol 1 pixel); "
-          f"serving_evaluate bf16: loss {gsl:.6f} vs {sl:.6f} (tol 2 %), {sv_flips:.0f} pixels "
-          f"(tol 2.5 %) {'ok' if ok else 'FAIL'}")
-    check(ok, "the sharded evaluate or serving_evaluate disagrees with one process")
+          f"(tol 1e-4 of {pixels}), HD95 {gem['hd95']:.4f} vs {em['hd95']:.4f} (tol 1 pixel) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the sharded evaluate disagrees with one process")
+    _serving_rule("serving_evaluate bf16 ('xla' ReparamConv, einsum upsample)", (gsl, gsm),
+                  (sl, sm))
+
+    # the row-window kernels' path: 'fused' + the flat upsample (B6, B5, B7 on
+    # each rank's slabs), then serving through B5 and B4 (and B7)
+    from lmnet_tpu_torch.ops import resize
+
+    for r in ranks:
+        want = {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32, "rc_fused": 0,
+                "upsample_flat": 7}
+        check(r["fused_step_launches"] == want,
+              f"rank {r['rank']}'s 'fused' + flat bf16 step launched {r['fused_step_launches']}"
+              f", want {want}")
+        for rc, kernel, other in (("flat", "rc_dw_gelu", "rc_fused"),
+                                  ("pallas", "rc_fused", "rc_dw_gelu")):
+            got = r["serves"][rc][1]
+            check(got[kernel] == 16 * 3 and got[other] == 0 and got["upsample_flat"] == 7 * 3
+                  and got["nat_fwd"] == 4 * 3,
+                  f"rank {r['rank']}'s serving with rc_backend={rc!r} launched {got}")
+        check(r["fused_collectives"] == ranks[0]["fused_collectives"],
+              f"the ranks' collectives differ: {[q['fused_collectives'] for q in ranks]}")
+    resize.UPSAMPLE_BACKEND = "flat"
+    try:
+        one_fused = _ddp_step(_spatial_fused_model(dev, torch.bfloat16), x, y)
+        ref = _spatial_fused_model(dev, torch.float32)
+        ref.load_state_dict(_spatial_fused_model(dev, torch.bfloat16).state_dict())
+        fp32_fused = _ddp_step(ref, x, y)
+        del ref
+        b16_fused = _bf16_rule(
+            f"'fused' + flat upsample bf16 {SPATIAL_IMG}^2 B={SPATIAL_BATCH} step, 2 ranks x "
+            f"{SPATIAL_IMG // 2} rows against one process", stats_only(ranks[0]["fused_bf16"]),
+            stats_only(one_fused), stats_only(fp32_fused), phase=21)
+        del one_fused, fp32_fused
+        _fp32_rule("'fused' + flat upsample fp32 64^2 B=2 step", ranks[0]["fused_fp32"],
+                   _ddp_step(_spatial_fused_model(dev, torch.float32), x32, y32))
+    finally:
+        resize.UPSAMPLE_BACKEND = "einsum"
+    same = all(torch.equal(ranks[0][k][2][n], ranks[1][k][2][n])
+               for k in ("fused_bf16", "fused_fp32") for n in ranks[0][k][2])
+    print(f"phase 21: both ranks' parameters and running statistics bitwise equal after the "
+          f"'fused' + flat steps: {same} {'ok' if same else 'FAIL'}")
+    check(same, "the ranks' parameters differ after the sharded 'fused' step")
+    serves = _spatial_serves(dev)
+    for rc, (one, _) in serves.items():
+        _serving_rule(f"serving_evaluate bf16 rc_backend={rc!r}, flat upsample",
+                      ranks[0]["serves"][rc][0], one)
+    fused_coll = ranks[0]["fused_collectives"]
+    window_launches = {
+        "rc_fused": sum(r["serves"]["pallas"][1]["rc_fused"] for r in ranks),
+        "rc_dw_gelu": sum(r["fused_launches"]["rc_dw_gelu"] + r["serves"]["flat"][1]["rc_dw_gelu"]
+                          for r in ranks),
+        "rc_stats": sum(r["fused_launches"]["rc_stats"] for r in ranks),
+        "upsample_flat": sum(r["fused_launches"]["upsample_flat"]
+                             + sum(r["serves"][rc][1]["upsample_flat"] for rc in r["serves"])
+                             for r in ranks),
+    }
+    check(all(v > 0 for v in window_launches.values()),
+          f"a row-window kernel never launched on the spatial path: {window_launches}")
 
     dry = dryrun_multichip(4, device=dev.type)
     coll = ranks[0]["collectives"]
@@ -3325,11 +3654,17 @@ def phase_spatial(dev, card_line) -> dict:
           f"{coll['forward']} all-reduces in forwards, {coll['backward']} in backwards, "
           f"{coll['grads']} of the gradients; torchrun 2 ranks {t_ranks:.1f}s; dry run "
           f"{dry['mesh'][0]}x{dry['mesh'][1]} {dry['seconds']:.1f}s")
+    print(f"phase 21: the 'fused' + flat upsample bf16 step's collectives: "
+          f"{fused_coll['halo']} halo exchanges, {fused_coll['forward']} all-reduces in "
+          f"forwards, {fused_coll['backward']} in backwards, {fused_coll['grads']} of the "
+          f"gradients")
     print(f"phase 21: spatial path: B1/B2 launches {json.dumps(launches)} (rank 0 "
           f"{json.dumps(ranks[0]['launches'])}, rank 1 {json.dumps(ranks[1]['launches'])}); "
-          f"phase 21 {time.perf_counter() - t_phase:.1f}s")
-    return {"spatial": launches, "slabs": slabs, "one_ms": one_ms, "two_ms": two_ms,
-            "collectives": coll, "bf16_worst": b16}
+          f"B4-B7 (the two ranks' 'fused' + flat steps and serving through B5 and B4) "
+          f"{json.dumps(window_launches)}; phase 21 {time.perf_counter() - t_phase:.1f}s")
+    return {"spatial": {**launches, **window_launches}, "slabs": {**slabs, **windows},
+            "one_ms": one_ms, "two_ms": two_ms, "collectives": coll,
+            "fused_collectives": fused_coll, "bf16_worst": b16, "bf16_fused_worst": b16_fused}
 
 
 def _kernel_name(mangled: str) -> str:
@@ -3477,7 +3812,9 @@ def main() -> int:
         new_paths[k]["ddp"] = ddp["ddp"][k]
         if ddp["ddp_cli"][k]:
             new_paths[k]["ddp_cli"] = ddp["ddp_cli"][k]
-    for k in ("nat_fwd", "nat_bwd"):  # phase 21: the two ranks' sum
+    new_paths["rc_fused"] = {}
+    new_paths["upsample_flat"] = {}
+    for k in ("nat_fwd", "nat_bwd", *RC_KERNELS, "upsample_flat"):  # phase 21: the ranks' sum
         new_paths[k]["spatial"] = spatial["spatial"][k]
     cli_f = (cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
              + sum(new_paths["nat_fwd"].values()))
@@ -3485,7 +3822,9 @@ def main() -> int:
              + sum(new_paths["nat_bwd"].values()))
 
     def rc_numbers(k, extra):
-        return {"max_abs_err": max(worst_rc[k], extra[0]), "ms": extra[1], "plain_ms": extra[2]}
+        return {"max_abs_err": max(worst_rc[k], extra[0],
+                                   *(s["max_abs_err"] for s in spatial["slabs"][k])),
+                "ms": extra[1], "plain_ms": extra[2]}
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": [
@@ -3513,8 +3852,12 @@ def main() -> int:
               graph_ms=b3["graph_ms"], nat_fwd_ms=b3["nat_fwd_ms"],
               nat_fwd_graph_ms=b3["nat_fwd_graph_ms"], ms_by_stage=b3["ms_by_stage"]),
         entry("rc_fused", "rc_fused.cu", "lmnet_tpu/ops/pallas/rc_kernel.py:145",
-              rc_serve_launches["rc_fused"], rc_numbers("rc_fused", rc_timed["rc_fused"]),
-              rc_work["rc_fused"], xla_ms=rc_timed["rc_fused"][3]),
+              rc_serve_launches["rc_fused"] + sum(new_paths["rc_fused"].values()),
+              rc_numbers("rc_fused", rc_timed["rc_fused"]),
+              rc_work["rc_fused"], xla_ms=rc_timed["rc_fused"][3],
+              launches_by_path={"serving": rc_serve_launches["rc_fused"],
+                                **new_paths["rc_fused"]},
+              ms_by_slab=spatial["slabs"]["rc_fused"]),
         entry("rc_dw_gelu", "rc_dw_gelu.cu", "lmnet_tpu/ops/pallas/rc_flat.py:119",
               rc_serve_launches["rc_dw_gelu"] + rc_train_launches["rc_dw_gelu"]
               + sum(new_paths["rc_dw_gelu"].values()),
@@ -3522,17 +3865,21 @@ def main() -> int:
               launches_by_path={"serving": rc_serve_launches["rc_dw_gelu"],
                                 "training": rc_train_launches["rc_dw_gelu"],
                                 **new_paths["rc_dw_gelu"]},
-              xla_ms=rc_timed["rc_dw_gelu"][3]),
+              xla_ms=rc_timed["rc_dw_gelu"][3], ms_by_slab=spatial["slabs"]["rc_dw_gelu"]),
         entry("rc_stats", "rc_stats.cu", "lmnet_tpu/ops/pallas/rc_train.py:140",
               rc_train_launches["rc_stats"] + sum(new_paths["rc_stats"].values()),
               rc_numbers("rc_stats", stats_timed), b6_work,
               launches_by_path={"training": rc_train_launches["rc_stats"],
                                 **new_paths["rc_stats"]},
-              xla_ms=stats_timed[3], ms_by_stage=b6_shapes),
+              xla_ms=stats_timed[3], ms_by_stage=b6_shapes,
+              ms_by_slab=spatial["slabs"]["rc_stats"]),
         entry("upsample_flat", "upsample_flat.cu", "lmnet_tpu/ops/pallas/upsample_flat.py:148",
-              sum(b7_launches.values()), b7, b7_work, launches_by_path=b7_launches,
+              sum(b7_launches.values()) + spatial["spatial"]["upsample_flat"],
+              {**b7, "max_abs_err": max(b7["max_abs_err"], *(
+                  s["max_abs_err"] for s in spatial["slabs"]["upsample_flat"]))},
+              b7_work, launches_by_path={**b7_launches, **new_paths["upsample_flat"]},
               graph_ms=b7["graph_ms"], graph10_ms=b7["graph10_ms"], host_us=b7["host_us"],
-              ms_by_call=b7["ms_by_call"]),
+              ms_by_call=b7["ms_by_call"], ms_by_slab=spatial["slabs"]["upsample_flat"]),
         entry("natt_flat", "natt_flat.cu", "lmnet_tpu/ops/pallas/natt_flat.py:265",
               b8_launches, b8, b8_work, unfused_ms=b8["unfused_ms"], ms_by_stage=b8_stages),
     ]}))

@@ -2,7 +2,9 @@
 
 Counterpart of ``lmnet_tpu/cli/train.py``, with the same flags, defaults,
 modes and files, plus ``--device`` (default ``cuda``; ``cpu`` runs on the
-CPU, nothing falls back to it on its own).
+CPU, nothing falls back to it on its own) and ``--rc_train_backend`` (the
+model's ``rc_train_backend``, a field of JAX's ``LMNet`` that its CLI does
+not expose; 'fused' trains through B6 and B5).
 
 Modes:
   (default)        5-fold training loop (k_fold) or single fold
@@ -162,6 +164,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the ReparamConv blocks in the backward: "
                         "true/full (the whole block), branches (all but the "
                         "expand conv's output) or false")
+    p.add_argument("--rc_train_backend", type=str, default="auto",
+                   choices=("auto", "xla", "fused", "packed"),
+                   help="the train-mode ReparamConv branch graph (LMNet's "
+                        "rc_train_backend): 'auto'/'xla' the plain branches, "
+                        "'fused' the B6 and B5 kernels, 'packed' one grouped conv")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train and evaluate on (default the "
                         "card; 'cpu' to run on the CPU)")
@@ -282,6 +289,7 @@ def main_single(fold: int, args) -> dict:
         generator=torch.Generator().manual_seed(args.seed),
         dtype=torch.bfloat16 if args.apm else None,
         rc_remat=args.rc_remat,
+        rc_train_backend=args.rc_train_backend,
         **model_kw,
     )
     state = create_train_state(

@@ -11,6 +11,11 @@
 // taken on the float32 t before it is stored in e's dtype. The weights are
 // the OIHW depthwise kernel (C, 1, 5, 5) and the bias (C,), both float32.
 //
+// The row window (the mesh's 'spatial' axis, parallel/spatial.py): e is a
+// slab of Hs rows and output row r is slab row top + r, for the H output
+// rows; a tap whose row falls outside the slab reads zero, and the sums
+// cover the H output rows alone. The whole map is Hs = H, top = 0.
+//
 // What bounds it on an H100: memory and instruction issue, close together.
 // Per element it must read e once and write t once (2 x 2 B in bf16: 0.225
 // ms for the 16 blocks of a 256^2, B=16 forward at 3.35 TB/s); its 25
@@ -102,7 +107,7 @@ template <typename T>
 __global__ void __launch_bounds__(kPairs * kChunk)
 dw_gelu_kernel(const T* __restrict__ e, const float* __restrict__ w,
                const float* __restrict__ bias, T* __restrict__ t, float* __restrict__ part,
-               int H, int W, int C, int ck, int ntx, int ntiles, int vb) {
+               int H, int W, int C, int Hs, int top, int ck, int ntx, int ntiles, int vb) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* es = reinterpret_cast<T*>(smem);       // halo, [hr][hc][k]
   T* ts = es + kHRows * kHCols * ck;        // t tile, [r][c][k]
@@ -127,13 +132,13 @@ dw_gelu_kernel(const T* __restrict__ e, const float* __restrict__ w,
   const int cstep = blockDim.x / units;
   const bool cin = cv * vb < nk * (int)sizeof(T);
 
-  const T* eb = e + (int64_t)b * H * W * C + ch0;
+  const T* eb = e + (int64_t)b * Hs * W * C + ch0;
   for (int p = cp0; cin && p < kHRows * kHCols; p += cstep) {
     const int hr = p / kHCols;
     const int hc = p - hr * kHCols;
-    const int rr = tr0 - 2 + hr;
+    const int rr = top + tr0 - 2 + hr;  // a slab row
     const int cc = tc0 - 2 + hc;
-    const bool in = rr >= 0 && rr < H && cc >= 0 && cc < W;
+    const bool in = rr >= 0 && rr < Hs && cc >= 0 && cc < W;
     const T* src = in ? eb + ((int64_t)rr * W + cc) * C : eb;
     copy_async(reinterpret_cast<unsigned char*>(es) + p * ps + cv * vb,
                reinterpret_cast<const unsigned char*>(src) + cv * vb, vb, in);
@@ -203,7 +208,7 @@ dw_gelu_kernel(const T* __restrict__ e, const float* __restrict__ w,
 
 template <typename T>
 int launch(const void* e, const float* w, const float* bias, void* t, float* sums, float* part,
-           int B, int H, int W, int C, const Geometry& g, cudaStream_t stream) {
+           int B, int H, int W, int C, int Hs, int top, const Geometry& g, cudaStream_t stream) {
   static bool attr_set = false;  // raise the kernel's shared-memory ceiling once
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(dw_gelu_kernel<T>,
@@ -214,8 +219,8 @@ int launch(const void* e, const float* w, const float* bias, void* t, float* sum
   }
   dim3 grid(g.ntiles, B, g.nchunk);
   dw_gelu_kernel<T><<<grid, kPairs * g.ck, g.smem, stream>>>(
-      static_cast<const T*>(e), w, bias, static_cast<T*>(t), part, H, W, C, g.ck, g.ntx,
-      g.ntiles, g.vb);
+      static_cast<const T*>(e), w, bias, static_cast<T*>(t), part, H, W, C, Hs, top, g.ck,
+      g.ntx, g.ntiles, g.vb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_partials_warp<<<(B * C + kWarpsPerReduce - 1) / kWarpsPerReduce, 32 * kWarpsPerReduce,
@@ -225,18 +230,23 @@ int launch(const void* e, const float* w, const float* bias, void* t, float* sum
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (e and t share it); w is float32
-// (C, 1, 5, 5), bias float32 (C,), sums float32 (B, C), part float32 scratch
-// of `workspace` values. All contiguous. The plan (tile rows and columns,
+// dtype: 0 = float32, 1 = bfloat16 (e and t share it); e is (B, Hs, W*C),
+// t (B, H, W*C) with output row r at slab row top + r (0 <= top, top + H <=
+// Hs); w is float32 (C, 1, 5, 5), bias float32 (C,), sums float32 (B, C) over
+// the H output rows, part float32 scratch of `workspace` values. All
+// contiguous. The plan (tile rows and columns,
 // channels per chunk, copy unit in bytes, shared-memory bytes, workspace)
 // must equal the kernel's own for this shape. Returns the first CUDA error
 // of the two launches: 0 on success; cudaErrorInvalidValue for a shape or
 // plan it does not take.
 extern "C" int lmnet_rc_dw_gelu(const void* e, const void* w, const void* bias, void* t,
-                                void* sums, void* part, int B, int H, int W, int C, int dtype,
+                                void* sums, void* part, int B, int H, int W, int C, int Hs,
+                                int top, int dtype,
                                 int tile_rows, int tile_cols, int chunk, int vb,
                                 long long smem, long long workspace, void* stream) {
-  if (!shape_ok(B, H, W, C) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, C) || (dtype != 0 && dtype != 1) || top < 0 || top + H > Hs) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Geometry g = geometry(B, H, W, C, dtype == 0 ? 4 : 2);
   if (tile_rows != kRows || tile_cols != kCols || chunk != g.ck || vb != g.vb ||
       smem != (long long)g.smem || workspace != g.workspace || g.smem > kMaxSmem) {
@@ -247,6 +257,6 @@ extern "C" int lmnet_rc_dw_gelu(const void* e, const void* w, const void* bias, 
   const float* bf = static_cast<const float*>(bias);
   float* sf = static_cast<float*>(sums);
   float* pf = static_cast<float*>(part);
-  if (dtype == 0) return launch<float>(e, wf, bf, t, sf, pf, B, H, W, C, g, s);
-  return launch<__nv_bfloat16>(e, wf, bf, t, sf, pf, B, H, W, C, g, s);
+  if (dtype == 0) return launch<float>(e, wf, bf, t, sf, pf, B, H, W, C, Hs, top, g, s);
+  return launch<__nv_bfloat16>(e, wf, bf, t, sf, pf, B, H, W, C, Hs, top, g, s);
 }

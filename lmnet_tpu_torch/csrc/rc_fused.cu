@@ -30,6 +30,15 @@
 // in bf16. ops/rc_kernel.py::fused_reparam_conv_plain rounds at the same
 // points for bf16 x.
 //
+// The row window (the mesh's 'spatial' axis, parallel/spatial.py): x is a
+// slab of Hs rows and output row r is slab row top + r, for the H output
+// rows. A halo row outside the slab is zero in x and, after the expand, in
+// e (the depthwise's zero padding, not hardswish(be)); phase 1's sums cover
+// the H output rows; phase 2 reads the same slab. On an H shard the slab
+// has no rows past the global edges (halo(x, 2, 2, edges=False)), so the
+// edge rank's missing rows are the global padding. The whole map is Hs = H,
+// top = 0.
+//
 // The layout: a block owns an 8 x TW output tile of one image (TW = 16, or
 // 8 where 16 would leave fewer than two blocks per SM or too many
 // accumulators per warp; ops/rc_kernel.py::rc_plan picks it and this file
@@ -213,7 +222,7 @@ template <int TW, bool ONE, int THREADS, bool PHASE2>
 __global__ void __launch_bounds__(THREADS, ONE ? 4 : (THREADS == 256 ? 2 : 3))
 rc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
              const float* __restrict__ pk, Layout L, Dims d, float* __restrict__ part,
-             bf16* __restrict__ out, int H, int W) {
+             bf16* __restrict__ out, int H, int W, int Hs, int top) {
   constexpr int HC = TW + 4;              // halo columns
   constexpr int HP = (kRows + 4) * HC;    // halo pixels
   constexpr int OUT = kRows * TW;         // tile pixels
@@ -242,19 +251,19 @@ rc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
 
-  // x's halo, zero outside the image and in the K padding
+  // x's halo, zero outside the slab and the image and in the K padding
   const int vb = vec_bytes(2LL * d.Cin);
   const int nux = d.Cin * 2 / vb;  // copy units of x per halo pixel
-  const bf16* xb = x + (int64_t)b * H * W * d.Cin;
+  const bf16* xb = x + (int64_t)b * Hs * W * d.Cin;
   if (vb == 16) {  // 16-byte cp.async, the K padding zero-filled the same way
     const int nu = d.kx / 8;
     for (int i = tid; i < HP * nu; i += blockDim.x) {
       const int p = i / nu;
       const int u = i - p * nu;
       const int hr = p / HC;
-      const int rr = tr - 2 + hr;
+      const int rr = top + tr - 2 + hr;  // a slab row
       const int cc = tc - 2 + (p - hr * HC);
-      const bool in = u < nux && rr >= 0 && rr < H && cc >= 0 && cc < W;
+      const bool in = u < nux && rr >= 0 && rr < Hs && cc >= 0 && cc < W;
       const bf16* src = in ? xb + ((int64_t)rr * W + cc) * d.Cin : xb;
       copy_async(xs + p * XS + u * 8, src + u * 8, 16, in);
     }
@@ -263,9 +272,9 @@ rc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
       uint4* row = reinterpret_cast<uint4*>(xs + p * XS);
       for (int u = 0; u < d.kx / 8; ++u) row[u] = make_uint4(0u, 0u, 0u, 0u);
       const int hr = p / HC;
-      const int rr = tr - 2 + hr;
+      const int rr = top + tr - 2 + hr;
       const int cc = tc - 2 + (p - hr * HC);
-      if (rr >= 0 && rr < H && cc >= 0 && cc < W) {
+      if (rr >= 0 && rr < Hs && cc >= 0 && cc < W) {
         const unsigned char* src =
             reinterpret_cast<const unsigned char*>(xb + ((int64_t)rr * W + cc) * d.Cin);
         for (int v = 0; v < nux; ++v) {
@@ -320,7 +329,7 @@ rc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
       __syncthreads();
     }
 
-    // expand + hardswish over the halo; zero outside the image
+    // expand + hardswish over the halo; zero outside the slab and the image
     const int ENT = d.ec / 8;
     for (int pr = warp; pr < (HP / 16) * ENT; pr += nwarps) {
       const int mt = pr / ENT;
@@ -335,9 +344,9 @@ rc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
       for (int h = 0; h < 2; ++h) {
         const int p = mt * 16 + g + 8 * h;
         const int hr = p / HC;
-        const int rr = tr - 2 + hr;
+        const int rr = top + tr - 2 + hr;
         const int cc = tc - 2 + (p - hr * HC);
-        const bool in = rr >= 0 && rr < H && cc >= 0 && cc < W;
+        const bool in = rr >= 0 && rr < Hs && cc >= 0 && cc < W;
         *reinterpret_cast<float2*>(es + p * ES + c) =
             in ? make_float2(hardswish(dd[2 * h] + be0), hardswish(dd[2 * h + 1] + be1))
                : make_float2(0.f, 0.f);
@@ -455,7 +464,8 @@ rc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ se,
 
 template <int TW, bool ONE, int THREADS, bool PHASE2>
 int launch_tc(const void* x, const float* s, const float* pk, const Layout& L, const Dims& d,
-              float* part, void* out, int B, int H, int W, size_t smem, cudaStream_t stream) {
+              float* part, void* out, int B, int H, int W, int Hs, int top, size_t smem,
+              cudaStream_t stream) {
   static bool attr_set = false;  // raise the kernel's shared-memory ceiling once
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(rc_tc_kernel<TW, ONE, THREADS, PHASE2>,
@@ -466,7 +476,7 @@ int launch_tc(const void* x, const float* s, const float* pk, const Layout& L, c
   }
   const dim3 grid((W + TW - 1) / TW, (H + kRows - 1) / kRows, B);
   rc_tc_kernel<TW, ONE, THREADS, PHASE2><<<grid, kRows * d.ec, smem, stream>>>(
-      static_cast<const bf16*>(x), s, pk, L, d, part, static_cast<bf16*>(out), H, W);
+      static_cast<const bf16*>(x), s, pk, L, d, part, static_cast<bf16*>(out), H, W, Hs, top);
   return (int)cudaGetLastError();
 }
 
@@ -475,23 +485,29 @@ int launch_tc(const void* x, const float* s, const float* pk, const Layout& L, c
 // else by the block's threads.
 template <int TW, bool PHASE2>
 int launch_tc_tw(const void* x, const float* s, const float* pk, const Layout& L, const Dims& d,
-                 float* part, void* out, int B, int H, int W, size_t smem, cudaStream_t stream) {
+                 float* part, void* out, int B, int H, int W, int Hs, int top, size_t smem,
+                 cudaStream_t stream) {
   if (kRows * d.ec <= 192) {
     if (d.nchunk == 1 && tc_pairs(d, TW) <= 3) {
-      return launch_tc<TW, true, 192, PHASE2>(x, s, pk, L, d, part, out, B, H, W, smem, stream);
+      return launch_tc<TW, true, 192, PHASE2>(x, s, pk, L, d, part, out, B, H, W, Hs, top, smem,
+                                              stream);
     }
-    return launch_tc<TW, false, 192, PHASE2>(x, s, pk, L, d, part, out, B, H, W, smem, stream);
+    return launch_tc<TW, false, 192, PHASE2>(x, s, pk, L, d, part, out, B, H, W, Hs, top, smem,
+                                             stream);
   }
-  return launch_tc<TW, false, 256, PHASE2>(x, s, pk, L, d, part, out, B, H, W, smem, stream);
+  return launch_tc<TW, false, 256, PHASE2>(x, s, pk, L, d, part, out, B, H, W, Hs, top, smem,
+                                           stream);
 }
 
 template <bool PHASE2>
 int launch_tc_for(int tw, const void* x, const float* s, const float* pk, const Layout& L,
-                  const Dims& d, float* part, void* out, int B, int H, int W, size_t smem,
-                  cudaStream_t stream) {
+                  const Dims& d, float* part, void* out, int B, int H, int W, int Hs, int top,
+                  size_t smem, cudaStream_t stream) {
   return tw == 16
-             ? launch_tc_tw<16, PHASE2>(x, s, pk, L, d, part, out, B, H, W, smem, stream)
-             : launch_tc_tw<8, PHASE2>(x, s, pk, L, d, part, out, B, H, W, smem, stream);
+             ? launch_tc_tw<16, PHASE2>(x, s, pk, L, d, part, out, B, H, W, Hs, top, smem,
+                                        stream)
+             : launch_tc_tw<8, PHASE2>(x, s, pk, L, d, part, out, B, H, W, Hs, top, smem,
+                                       stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -518,7 +534,8 @@ template <bool PHASE2>
 __global__ void __launch_bounds__(kThreads)
 rc_f32_kernel(const float* __restrict__ x, const float* __restrict__ se_scale,
               const float* __restrict__ pk, Layout L, float* __restrict__ part,
-              float* __restrict__ out, int H, int W, int Cin, int E, int Cout) {
+              float* __restrict__ out, int H, int W, int Hs, int top, int Cin, int E,
+              int Cout) {
   extern __shared__ float smem_f[];
   const int xsd = Cin + 1;  // padded: neighbouring halo pixels on other banks
   float* xs = smem_f;
@@ -534,14 +551,14 @@ rc_f32_kernel(const float* __restrict__ x, const float* __restrict__ se_scale,
   const int tr = blockIdx.y * kTile;  // the tile's first output row and column
   const int tc = blockIdx.x * kTile;
   const int tid = threadIdx.x;
-  const float* xb = x + (int64_t)b * H * W * Cin;
+  const float* xb = x + (int64_t)b * Hs * W * Cin;
 
   for (int i = tid; i < kHaloPix * Cin; i += kThreads) {
     const int p = i / Cin;
     const int k = i - p * Cin;
-    const int rr = tr - 2 + p / kHalo;
+    const int rr = top + tr - 2 + p / kHalo;  // a slab row
     const int cc = tc - 2 + p % kHalo;
-    const bool in = rr >= 0 && rr < H && cc >= 0 && cc < W;
+    const bool in = rr >= 0 && rr < Hs && cc >= 0 && cc < W;
     xs[p * xsd + k] = in ? xb[((int64_t)rr * W + cc) * Cin + k] : 0.f;
   }
   __syncthreads();
@@ -562,14 +579,14 @@ rc_f32_kernel(const float* __restrict__ x, const float* __restrict__ se_scale,
 
   for (int c0 = 0; c0 < E; c0 += kChunk) {
     const int ec = min(kChunk, E - c0);
-    // expand + hardswish over the halo; zero outside the image
+    // expand + hardswish over the halo; zero outside the slab and the image
     for (int i = tid; i < kHaloPix * ec; i += kThreads) {
       const int p = i / ec;
       const int c = i - p * ec;
-      const int rr = tr - 2 + p / kHalo;
+      const int rr = top + tr - 2 + p / kHalo;
       const int cc = tc - 2 + p % kHalo;
       float v = 0.f;
-      if (rr >= 0 && rr < H && cc >= 0 && cc < W) {
+      if (rr >= 0 && rr < Hs && cc >= 0 && cc < W) {
         const float* xp = xs + p * xsd;
         float acc = be[c0 + c];
         for (int k = 0; k < Cin; ++k) acc += weT[k * E + c0 + c] * xp[k];
@@ -634,15 +651,15 @@ rc_f32_kernel(const float* __restrict__ x, const float* __restrict__ se_scale,
 
 template <bool PHASE2>
 int launch_f32(const void* x, const float* s, const float* pk, const Layout& L, float* part,
-               void* out, int B, int H, int W, int Cin, int E, int Cout, size_t smem,
-               cudaStream_t stream) {
+               void* out, int B, int H, int W, int Hs, int top, int Cin, int E, int Cout,
+               size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(rc_f32_kernel<PHASE2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
   rc_f32_kernel<PHASE2><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), s, pk, L, part, static_cast<float*>(out), H, W, Cin, E,
-      Cout);
+      static_cast<const float*>(x), s, pk, L, part, static_cast<float*>(out), H, W, Hs, top, Cin,
+      E, Cout);
   return (int)cudaGetLastError();
 }
 
@@ -688,19 +705,22 @@ bool plan_matches(const Plan& own, int tile_rows, int tile_cols, long long smem,
 
 }  // namespace
 
-// Phase 1. dtype: 0 = float32, 1 = bfloat16 (x). packed: the float32 buffer
-// of ops/rc_kernel.py::pack_rc_weights (pack_layout above). Writes sums,
-// float32 (B, E): the per-image channel sums of t; part is float32 scratch.
+// Phase 1. dtype: 0 = float32, 1 = bfloat16 (x, (B, Hs, W, Cin); output row
+// r at slab row top + r, 0 <= top, top + H <= Hs). packed: the float32
+// buffer of ops/rc_kernel.py::pack_rc_weights (pack_layout above). Writes
+// sums, float32 (B, E): the per-image channel sums of t over the H output
+// rows; part is float32 scratch.
 // The plan (tile rows and columns, this phase's shared-memory bytes, part's
 // and packed's sizes in floats) must equal make_plan's for this shape.
 // Returns the first CUDA error: 0 on success; cudaErrorInvalidValue for a
 // shape or plan the kernels do not take.
 extern "C" int lmnet_rc_fused_phase1(const void* x, const void* packed, void* sums, void* part,
-                                     int B, int H, int W, int Cin, int E, int Cout, int dtype,
-                                     int tile_rows, int tile_cols, long long smem,
-                                     long long workspace, long long packed_len, void* stream) {
+                                     int B, int H, int W, int Cin, int E, int Cout, int Hs,
+                                     int top, int dtype, int tile_rows, int tile_cols,
+                                     long long smem, long long workspace, long long packed_len,
+                                     void* stream) {
   Plan own;
-  if (!make_plan(B, H, W, Cin, E, Cout, dtype, &own) ||
+  if (top < 0 || top + H > Hs || !make_plan(B, H, W, Cin, E, Cout, dtype, &own) ||
       !plan_matches(own, tile_rows, tile_cols, smem, false, workspace, packed_len)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -711,10 +731,11 @@ extern "C" int lmnet_rc_fused_phase1(const void* x, const void* packed, void* su
   float* p = static_cast<float*>(part);
   int err;
   if (dtype == 0) {
-    err = launch_f32<false>(x, nullptr, pk, L, p, nullptr, B, H, W, Cin, E, Cout, own.smem1, st);
+    err = launch_f32<false>(x, nullptr, pk, L, p, nullptr, B, H, W, Hs, top, Cin, E, Cout,
+                            own.smem1, st);
   } else {
-    err = launch_tc_for<false>(own.tile_cols, x, nullptr, pk, L, d, p, nullptr, B, H, W,
-                               own.smem1, st);
+    err = launch_tc_for<false>(own.tile_cols, x, nullptr, pk, L, d, p, nullptr, B, H, W, Hs,
+                               top, own.smem1, st);
   }
   if (err != 0) return err;
   const int n = (int)(own.workspace / ((long long)B * E));
@@ -724,14 +745,15 @@ extern "C" int lmnet_rc_fused_phase1(const void* x, const void* packed, void* su
 }
 
 // Phase 2. As phase 1, plus s float32 (B, E), the SE scale. Writes out
-// (B, H, W, Cout) in x's dtype. Returns the CUDA error of the launch: 0 on
-// success.
+// (B, H, W, Cout) in x's dtype: the H output rows. Returns the CUDA error of
+// the launch: 0 on success.
 extern "C" int lmnet_rc_fused_phase2(const void* x, const void* s, const void* packed,
                                      void* out, int B, int H, int W, int Cin, int E, int Cout,
-                                     int dtype, int tile_rows, int tile_cols, long long smem,
-                                     long long workspace, long long packed_len, void* stream) {
+                                     int Hs, int top, int dtype, int tile_rows, int tile_cols,
+                                     long long smem, long long workspace, long long packed_len,
+                                     void* stream) {
   Plan own;
-  if (!make_plan(B, H, W, Cin, E, Cout, dtype, &own) ||
+  if (top < 0 || top + H > Hs || !make_plan(B, H, W, Cin, E, Cout, dtype, &own) ||
       !plan_matches(own, tile_rows, tile_cols, smem, true, workspace, packed_len)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -741,8 +763,9 @@ extern "C" int lmnet_rc_fused_phase2(const void* x, const void* s, const void* p
   const float* pk = static_cast<const float*>(packed);
   const float* sf = static_cast<const float*>(s);
   if (dtype == 0) {
-    return launch_f32<true>(x, sf, pk, L, nullptr, out, B, H, W, Cin, E, Cout, own.smem2, st);
+    return launch_f32<true>(x, sf, pk, L, nullptr, out, B, H, W, Hs, top, Cin, E, Cout,
+                            own.smem2, st);
   }
-  return launch_tc_for<true>(own.tile_cols, x, sf, pk, L, d, nullptr, out, B, H, W, own.smem2,
-                             st);
+  return launch_tc_for<true>(own.tile_cols, x, sf, pk, L, d, nullptr, out, B, H, W, Hs, top,
+                             own.smem2, st);
 }

@@ -13,6 +13,12 @@
 // in float32. The kernels are OIHW depthwise, float32: k5 (C, 1, 5, 5),
 // k3 (C, 1, 3, 3), kv (C, 1, 3, 1), kh (C, 1, 1, 3).
 //
+// The row window (the mesh's 'spatial' axis, parallel/spatial.py): e is a
+// slab of Hs rows and output row r is slab row top + r, for the H output
+// rows; a tap whose row falls outside the slab reads zero, and the
+// statistics cover the H output rows alone. The whole map is Hs = H,
+// top = 0.
+//
 // What bounds it on an H100: arithmetic. Per element 40 multiply-adds (the
 // four branches) and 8 accumulations, 96 float32 operations: 0.27 ms at 67
 // TFLOP/s for the 16 blocks of a 256^2, B=16 training forward, against 0.11
@@ -94,8 +100,10 @@ Geometry geometry(int B, int H, int W, int C, int esize) {
   return g;
 }
 
-bool shape_ok(int B, int H, int W, int C) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0) return false;
+bool shape_ok(int B, int H, int W, int C, int Hs, int top) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || top < 0 || top + H > Hs) {
+    return false;
+  }
   const long long tiles = (long long)((H + kRows - 1) / kRows) * ((W + kCols - 1) / kCols);
   const int ck = chunk_channels(C);
   return tiles * B <= 0x7fffffffLL && (C + ck - 1) / ck <= 65535 && 8LL * C <= 0x7fffffffLL;
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(kPairs * kChunk, 2)
 rc_stats_kernel(const T* __restrict__ e, const float* __restrict__ k5,
                 const float* __restrict__ k3, const float* __restrict__ kv,
                 const float* __restrict__ kh, float* __restrict__ part, int H, int W, int C,
-                int ck, int ntx, int ntiles, int vb) {
+                int Hs, int top, int ck, int ntx, int ntiles, int vb) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* es = reinterpret_cast<T*>(smem);  // halo, [hr][hc][k]
   const size_t halo = (size_t)kHRows * kHCols * ck * sizeof(T);
@@ -171,13 +179,13 @@ rc_stats_kernel(const T* __restrict__ e, const float* __restrict__ k5,
   const int cstep = nthreads / units;
   const bool cin = cv * vb < nk * (int)sizeof(T);
 
-  const T* eb = e + (int64_t)b * H * W * C + ch0;
+  const T* eb = e + (int64_t)b * Hs * W * C + ch0;
   for (int p = cp0; cin && p < kHRows * kHCols; p += cstep) {
     const int hr = p / kHCols;
     const int hc = p - hr * kHCols;
-    const int rr = tr0 - 2 + hr;
+    const int rr = top + tr0 - 2 + hr;  // a slab row
     const int cc = tc0 - 2 + hc;
-    const bool in = rr >= 0 && rr < H && cc >= 0 && cc < W;
+    const bool in = rr >= 0 && rr < Hs && cc >= 0 && cc < W;
     const T* src = in ? eb + ((int64_t)rr * W + cc) * C : eb;
     copy_async(reinterpret_cast<unsigned char*>(es) + p * ps + cv * vb,
                reinterpret_cast<const unsigned char*>(src) + cv * vb, vb, in);
@@ -262,8 +270,8 @@ rc_stats_kernel(const T* __restrict__ e, const float* __restrict__ k5,
 
 template <typename T>
 int launch(const void* e, const float* k5, const float* k3, const float* kv, const float* kh,
-           float* out, float* part, int B, int H, int W, int C, const Geometry& g,
-           cudaStream_t stream) {
+           float* out, float* part, int B, int H, int W, int C, int Hs, int top,
+           const Geometry& g, cudaStream_t stream) {
   static bool attr_set = false;  // raise the kernel's shared-memory ceiling once
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(rc_stats_kernel<T>,
@@ -274,7 +282,8 @@ int launch(const void* e, const float* k5, const float* k3, const float* kv, con
   }
   dim3 grid(g.ntiles, B, g.nchunk);
   rc_stats_kernel<T><<<grid, kPairs * g.ck, g.smem, stream>>>(
-      static_cast<const T*>(e), k5, k3, kv, kh, part, H, W, C, g.ck, g.ntx, g.ntiles, g.vb);
+      static_cast<const T*>(e), k5, k3, kv, kh, part, H, W, C, Hs, top, g.ck, g.ntx, g.ntiles,
+      g.vb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = B * g.ntiles;
@@ -285,12 +294,14 @@ int launch(const void* e, const float* k5, const float* k3, const float* kv, con
 
 }  // namespace
 
-// The kernel's own plan for e (B, H, W*C) of dtype (0 = float32, 1 =
-// bfloat16), into out[8]: tile rows, tile columns, channels per chunk,
-// chunks, copy unit in bytes, shared-memory bytes, tiles per image,
-// workspace. Returns 0, or -1 for a shape it does not take (out untouched).
-extern "C" int lmnet_rc_stats_plan(int B, int H, int W, int C, int dtype, long long* out) {
-  if (!shape_ok(B, H, W, C) || (dtype != 0 && dtype != 1)) return -1;
+// The kernel's own plan for H output rows of e (B, Hs, W*C) from slab row
+// top, of dtype (0 = float32, 1 = bfloat16), into out[8]: tile rows, tile
+// columns, channels per chunk, chunks, copy unit in bytes, shared-memory
+// bytes, tiles per image, workspace. Returns 0, or -1 for a shape or window
+// it does not take (out untouched).
+extern "C" int lmnet_rc_stats_plan(int B, int H, int W, int C, int Hs, int top, int dtype,
+                                   long long* out) {
+  if (!shape_ok(B, H, W, C, Hs, top) || (dtype != 0 && dtype != 1)) return -1;
   const Geometry g = geometry(B, H, W, C, dtype == 0 ? 4 : 2);
   if (g.smem > kMaxSmem) return -1;
   const long long v[8] = {kRows, kCols, g.ck, g.nchunk, g.vb, (long long)g.smem, g.ntiles,
@@ -299,9 +310,10 @@ extern "C" int lmnet_rc_stats_plan(int B, int H, int W, int C, int dtype, long l
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (e); the four kernels are float32 OIHW
-// depthwise; out is float32 (4, 2, C): per branch (5x5, 3x3, 3x1, 1x3) the
-// sum and the sum of squares over B*H*W; part is float32 scratch of
+// dtype: 0 = float32, 1 = bfloat16 (e, (B, Hs, W*C); output row r at slab
+// row top + r); the four kernels are float32 OIHW depthwise; out is float32
+// (4, 2, C): per branch (5x5, 3x3, 3x1, 1x3) the sum and the sum of squares
+// over B x the H output rows x W; part is float32 scratch of
 // `workspace` values. All contiguous. The plan (tile rows and columns,
 // channels per chunk, copy unit in bytes, shared-memory bytes, workspace)
 // must equal the kernel's own for this shape. Returns the first CUDA error
@@ -309,9 +321,12 @@ extern "C" int lmnet_rc_stats_plan(int B, int H, int W, int C, int dtype, long l
 // plan it does not take.
 extern "C" int lmnet_rc_stats(const void* e, const void* k5, const void* k3, const void* kv,
                               const void* kh, void* out, void* part, int B, int H, int W, int C,
-                              int dtype, int tile_rows, int tile_cols, int chunk, int vb,
-                              long long smem, long long workspace, void* stream) {
-  if (!shape_ok(B, H, W, C) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                              int Hs, int top, int dtype, int tile_rows, int tile_cols,
+                              int chunk, int vb, long long smem, long long workspace,
+                              void* stream) {
+  if (!shape_ok(B, H, W, C, Hs, top) || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Geometry g = geometry(B, H, W, C, dtype == 0 ? 4 : 2);
   if (tile_rows != kRows || tile_cols != kCols || chunk != g.ck || vb != g.vb ||
       smem != (long long)g.smem || workspace != g.workspace || g.smem > kMaxSmem) {
@@ -324,6 +339,6 @@ extern "C" int lmnet_rc_stats(const void* e, const void* k5, const void* k3, con
   const float* h = static_cast<const float*>(kh);
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(part);
-  if (dtype == 0) return launch<float>(e, a, b, v, h, o, p, B, H, W, C, g, s);
-  return launch<__nv_bfloat16>(e, a, b, v, h, o, p, B, H, W, C, g, s);
+  if (dtype == 0) return launch<float>(e, a, b, v, h, o, p, B, H, W, C, Hs, top, g, s);
+  return launch<__nv_bfloat16>(e, a, b, v, h, o, p, B, H, W, C, Hs, top, g, s);
 }

@@ -16,6 +16,14 @@
 // in float32, and round once to the tensor's dtype, as
 // ops/upsample_flat.py::upsample2x_flat_plain does.
 //
+// The row window (the mesh's 'spatial' axis, parallel/spatial.py): x is a
+// slab of Hs rows of a map of global height Hg; the kernel writes the
+// outputs of H input rows, whose first is slab row top and global row row0.
+// k, H, a_k and b_k above are then the global row and Hg, and the
+// neighbours k - 1 and k + 1 (clamped to the global map) are read from the
+// slab, which must hold them (one halo row each side inside the map). The
+// whole map is Hs = Hg = H, top = row0 = 0.
+//
 // What bounds it on an H100: memory. Each input element is read once and
 // four output elements are written: 5 x 2 B per input element in bf16,
 // writing is 80 % of the bytes; about 6 flops an output element. The
@@ -114,11 +122,12 @@ struct UpPlan {
   int copies, offset, copy_stride;
 };
 
-// The plan for (B, H, W, C) in elements of es bytes; false for a shape the
-// kernel does not take (a grid dimension past 65535). The same function as
+// The plan for the outputs of H input rows of a (B, Hs, W, C) slab in
+// elements of es bytes; false for a shape the kernel does not take (a grid
+// dimension past 65535). The same function as
 // ops/upsample_flat.py::upsample_plan.
-bool up_plan(int B, int H, int W, int C, int es, UpPlan* p) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || (es != 2 && es != 4)) return false;
+bool up_plan(int B, int H, int W, int C, int es, int Hs, UpPlan* p) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Hs < H || (es != 2 && es != 4)) return false;
   *p = UpPlan{};
   if ((long long)C * es % 16 == 0) {
     const int V = 16 / es;
@@ -154,7 +163,7 @@ bool up_plan(int B, int H, int W, int C, int es, UpPlan* p) {
     const int rb = box_rows(th);
     p->dims[0] = (uint64_t)C;
     p->dims[1] = (uint64_t)W;
-    p->dims[2] = (uint64_t)B * H;
+    p->dims[2] = (uint64_t)B * Hs;
     p->strides[0] = (uint64_t)C * es;
     p->strides[1] = (uint64_t)W * C * es;
     p->box[0] = (uint32_t)cc;
@@ -237,7 +246,8 @@ __device__ __forceinline__ uint4 lerp_chunk(const uint4& kj, const uint4& mj, co
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 up_tma_kernel(const __grid_constant__ CUtensorMap map, T* __restrict__ out, int H, int W, int C,
-              int th, int tw, int cc, int nchunk, int rb, int nbox, int offset, int copy_stride) {
+              int Hs, int top, int Hg, int row0, int th, int tw, int cc, int nchunk, int rb,
+              int nbox, int offset, int copy_stride) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align128(smem_raw);
@@ -245,7 +255,7 @@ up_tma_kernel(const __grid_constant__ CUtensorMap map, T* __restrict__ out, int 
   const T* tile = reinterpret_cast<const T*>(base + offset);
   const int b = blockIdx.z / nchunk;
   const int ch0 = (blockIdx.z - b * nchunk) * cc;
-  const int r0 = blockIdx.y * th;
+  const int r0 = blockIdx.y * th;  // the tile's first input row (of the H)
   const int c0 = blockIdx.x * tw;
   const int hw = tw + 2;
   const int bstride = copy_stride / (int)sizeof(T);  // from one copy to the next, in elements
@@ -255,7 +265,7 @@ up_tma_kernel(const __grid_constant__ CUtensorMap map, T* __restrict__ out, int 
     for (int i = 0; i < nbox; ++i) {
       mbar_expect_tx(bar + i, (unsigned)(rb * hw * cc * (int)sizeof(T)));
       tma_load_3d(const_cast<T*>(tile) + i * bstride, &map, bar + i, ch0, c0 - 1,
-                  b * H + r0 - 1 + i * rb);
+                  b * Hs + top + r0 - 1 + i * rb);
     }
   }
   // the thread's output column and chunk, worked out while the copy flies
@@ -275,25 +285,28 @@ up_tma_kernel(const __grid_constant__ CUtensorMap map, T* __restrict__ out, int 
     while (ready * rb <= k - r0 + 1) mbar_wait(bar + ready++, 0);
   };
   if (active) {
-    auto row = [&](const T* col, int k) {  // input row k (in the halo) at a column
+    // input row k (of the H; -1 and H are the slab's halo rows) at a column
+    auto row = [&](const T* col, int k) {
       const int lr = k - r0 + 1;
       return *reinterpret_cast<const uint4*>(col + (lr / rb) * bstride + (lr % rb) * hw * cc);
     };
     const int nr = min(th, H - r0);
     need(r0);
-    uint4 mj = row(colj, max(r0 - 1, 0)), mn = row(coln, max(r0 - 1, 0));  // row k - 1
-    uint4 kj = row(colj, r0), kn = row(coln, r0);                          // row k
+    const int km = row0 + r0 > 0 ? r0 - 1 : r0;  // clamped to the global map
+    uint4 mj = row(colj, km), mn = row(coln, km);  // row k - 1
+    uint4 kj = row(colj, r0), kn = row(coln, r0);  // row k
     const int64_t ostride = 2 * (int64_t)W * C;  // an output row
     T* dst =
         out + ((int64_t)b * 2 * H + 2 * r0) * ostride + (int64_t)(2 * c0 + o) * C + ch0 + ch * V;
-    const float den = (float)(2 * H - 1);
+    const float den = (float)(2 * Hg - 1);
     for (int i = 0; i < nr; ++i) {
       const int k = r0 + i;
-      const int kp = min(k + 1, H - 1);
+      const int kg = row0 + k;  // the global row
+      const int kp = kg < Hg - 1 ? k + 1 : k;
       need(kp);
       const uint4 pj = row(colj, kp), pn = row(coln, kp);  // row k + 1
-      const float ah = (float)k / den;
-      const float bh = (float)(H - 1 - k) / den;
+      const float ah = (float)kg / den;
+      const float bh = (float)(Hg - 1 - kg) / den;
       __stcs(reinterpret_cast<uint4*>(dst), lerp_chunk<T>(kj, mj, kn, mn, ah, ww));
       __stcs(reinterpret_cast<uint4*>(dst + ostride), lerp_chunk<T>(kj, pj, kn, pn, bh, ww));
       dst += 2 * ostride;
@@ -327,16 +340,19 @@ __device__ __forceinline__ void store_v(T* p, const float (&f)[V]) {
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kGenericThreads)
-up_generic_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int ppx) {
+up_generic_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int Hs,
+                  int top, int Hg, int row0, int ppx) {
   const int cpp = C / V;
   const int b = blockIdx.z;
-  const int k = blockIdx.y;
+  const int k = blockIdx.y;   // the input row, of the H
+  const int kg = row0 + k;    // its global row
   const int j0 = blockIdx.x * ppx;
   const int items = min(ppx, W - j0) * cpp;
-  const float ah = (float)k / (float)(2 * H - 1);            // on x[k-1], even rows
-  const float bh = (float)(H - 1 - k) / (float)(2 * H - 1);  // on x[k+1], odd rows
-  const int rows[3] = {max(k - 1, 0), k, min(k + 1, H - 1)};
-  const int64_t img = (int64_t)b * H;
+  const float ah = (float)kg / (float)(2 * Hg - 1);             // on x[k-1], even rows
+  const float bh = (float)(Hg - 1 - kg) / (float)(2 * Hg - 1);  // on x[k+1], odd rows
+  // slab rows k - 1, k, k + 1, clamped to the global map
+  const int rows[3] = {top + (kg > 0 ? k - 1 : k), top + k, top + (kg < Hg - 1 ? k + 1 : k)};
+  const int64_t img = (int64_t)b * Hs;
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int p = it / cpp;
     const int ch = (it - p * cpp) * V;
@@ -359,7 +375,7 @@ up_generic_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, in
     const float aw = (float)j / (float)(2 * W - 1);
     const float bw = (float)(W - 1 - j) / (float)(2 * W - 1);
     const int64_t W2 = 2 * (int64_t)W;
-    const int64_t o0 = (((img * 2) + 2 * k) * W2 + 2 * j) * C + ch;
+    const int64_t o0 = (((int64_t)b * 2 * H + 2 * k) * W2 + 2 * j) * C + ch;
     float o[V];
 #pragma unroll
     for (int ph = 0; ph < 2; ++ph) {
@@ -376,76 +392,88 @@ up_generic_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, in
 }
 
 template <typename T>
-int launch_tma(const void* x, void* out, int B, int H, int W, int C, const UpPlan& p,
-               cudaStream_t s) {
+int launch_tma(const void* x, void* out, int B, int H, int W, int C, const int (&win)[4],
+               const UpPlan& p, cudaStream_t s) {
   CUtensorMap map;
   const int enc = encode(&map, (int)sizeof(T), 3, x, p.dims, p.strides, p.box);
   if (enc != 0) return enc;
   up_tma_kernel<T><<<dim3(p.gx, p.gy, p.gz), p.threads, p.smem, s>>>(
-      map, static_cast<T*>(out), H, W, C, p.th, p.tw, p.cc, p.gz / B, (int)p.box[2], p.copies,
-      p.offset, p.copy_stride);
+      map, static_cast<T*>(out), H, W, C, win[0], win[1], win[2], win[3], p.th, p.tw, p.cc,
+      p.gz / B, (int)p.box[2], p.copies, p.offset, p.copy_stride);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int V>
-int launch_generic_v(const void* x, void* out, int H, int W, int C, const UpPlan& p,
-                     cudaStream_t s) {
+int launch_generic_v(const void* x, void* out, int H, int W, int C, const int (&win)[4],
+                     const UpPlan& p, cudaStream_t s) {
   up_generic_kernel<T, V><<<dim3(p.gx, p.gy, p.gz), p.threads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), H, W, C, p.tw);
+      static_cast<const T*>(x), static_cast<T*>(out), H, W, C, win[0], win[1], win[2], win[3],
+      p.tw);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_generic(const void* x, void* out, int H, int W, int C, const UpPlan& p,
-                   cudaStream_t s) {
+int launch_generic(const void* x, void* out, int H, int W, int C, const int (&win)[4],
+                   const UpPlan& p, cudaStream_t s) {
   switch (p.vec * (int)sizeof(T)) {  // the unit in bytes: below 16 here
-    case 8: return launch_generic_v<T, 8 / sizeof(T)>(x, out, H, W, C, p, s);
-    case 4: return launch_generic_v<T, 4 / sizeof(T)>(x, out, H, W, C, p, s);
+    case 8: return launch_generic_v<T, 8 / sizeof(T)>(x, out, H, W, C, win, p, s);
+    case 4: return launch_generic_v<T, 4 / sizeof(T)>(x, out, H, W, C, win, p, s);
     default:
-      if constexpr (sizeof(T) == 2) return launch_generic_v<T, 1>(x, out, H, W, C, p, s);
+      if constexpr (sizeof(T) == 2) return launch_generic_v<T, 1>(x, out, H, W, C, win, p, s);
       return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x (B, H, W, C) and out (B, 2H, 2W, C) contiguous and 16-byte aligned.
+// x (B, Hs, W, C) and out (B, 2H, 2W, C) contiguous and 16-byte aligned.
 // args: B, H, W, C, dtype (0 = float32, 1 = bfloat16), then the plan
 // (variant 1 = tma / 0 = generic, rows and columns a block, channels a
 // block, elements a chunk, threads, shared-memory bytes), which must equal
-// the kernel's own for this shape: 12 numbers in one array, so that the
-// call converts four arguments, not fifteen (its host cost is most of a
-// small call's). Returns 0 on success; a CUDA error (cudaErrorInvalidValue
-// for a shape or plan it does not take, else the launch's); or a negated
-// CUresult when the tensor map cannot be encoded.
+// the kernel's own for this shape, then the row window: Hs, top, Hg, row0
+// (the H input rows are slab rows top .. and global rows row0 .. of a map
+// of Hg rows; the slab holds their neighbours inside the map): 16 numbers
+// in one array, so that the call converts four arguments, not nineteen
+// (its host cost is most of a small call's). Returns 0 on success; a CUDA
+// error (cudaErrorInvalidValue for a shape, plan or window it does not
+// take, else the launch's); or a negated CUresult when the tensor map
+// cannot be encoded.
 extern "C" int lmnet_upsample2x(const void* x, void* out, const long long* args, void* stream) {
   const int B = (int)args[0], H = (int)args[1], W = (int)args[2], C = (int)args[3];
   const int dtype = (int)args[4];
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int win[4] = {(int)args[12], (int)args[13], (int)args[14], (int)args[15]};
+  const int Hs = win[0], top = win[1], Hg = win[2], row0 = win[3];
+  if (top < 0 || top + H > Hs || row0 < 0 || row0 + H > Hg || (row0 > 0 && top < 1) ||
+      (row0 + H < Hg && top + H >= Hs)) {
+    return (int)cudaErrorInvalidValue;
+  }
   UpPlan p;
-  if (!up_plan(B, H, W, C, dtype == 0 ? 4 : 2, &p)) return (int)cudaErrorInvalidValue;
+  if (!up_plan(B, H, W, C, dtype == 0 ? 4 : 2, Hs, &p)) return (int)cudaErrorInvalidValue;
   if (args[5] != p.tma || args[6] != p.th || args[7] != p.tw || args[8] != p.cc ||
       args[9] != p.vec || args[10] != p.threads || args[11] != p.smem) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return p.tma ? launch_tma<float>(x, out, B, H, W, C, p, s)
-                 : launch_generic<float>(x, out, H, W, C, p, s);
+    return p.tma ? launch_tma<float>(x, out, B, H, W, C, win, p, s)
+                 : launch_generic<float>(x, out, H, W, C, win, p, s);
   }
-  return p.tma ? launch_tma<__nv_bfloat16>(x, out, B, H, W, C, p, s)
-               : launch_generic<__nv_bfloat16>(x, out, H, W, C, p, s);
+  return p.tma ? launch_tma<__nv_bfloat16>(x, out, B, H, W, C, win, p, s)
+               : launch_generic<__nv_bfloat16>(x, out, H, W, C, win, p, s);
 }
 
-// The kernel's own plan for this shape, 22 numbers: tma, th, tw, cc, vec,
+// The kernel's own plan for the outputs of H input rows of a (B, Hs, W, C)
+// slab, 22 numbers: tma, th, tw, cc, vec,
 // threads, gx, gy, gz, smem; the tma variant's geometry, as the launch
 // encodes it and the kernel reads it (0 for generic): dims[3], strides[2],
 // box[3], copies, offset, copy_stride; and last 1 (a plan was made) or 0
 // (refused; the rest is then 0). For the tests that hold
 // ops/upsample_flat.py::upsample_plan to it.
-extern "C" void lmnet_upsample2x_plan(int B, int H, int W, int C, int dtype, long long* out) {
+extern "C" void lmnet_upsample2x_plan(int B, int H, int W, int C, int Hs, int dtype,
+                                      long long* out) {
   UpPlan p = {};
-  const bool ok = up_plan(B, H, W, C, dtype == 0 ? 4 : 2, &p);
+  const bool ok = up_plan(B, H, W, C, dtype == 0 ? 4 : 2, Hs, &p);
   const long long v[22] = {p.tma, p.th, p.tw, p.cc, p.vec, p.threads, p.gx, p.gy, p.gz, p.smem,
                            (long long)p.dims[0], (long long)p.dims[1], (long long)p.dims[2],
                            (long long)p.strides[0], (long long)p.strides[1], p.box[0], p.box[1],

@@ -54,7 +54,15 @@ from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
 from lmnet_tpu_torch.ops.rc_train import rc_branch_act
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
 from lmnet_tpu_torch.parallel.batch import current_shard, dropout_rows, moments, whole
-from lmnet_tpu_torch.parallel.spatial import crop, gather_rows, halo, own_rows, spatial_mean
+from lmnet_tpu_torch.parallel.spatial import (
+    crop,
+    gather_rows,
+    global_rows,
+    halo,
+    own_rows,
+    spatial_mean,
+    spatial_sum,
+)
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -312,7 +320,8 @@ class ReparamConv(nn.Module):
     'xla': the four branch convs and BNs in plain torch. 'fused':
     ``ops/rc_train.py::rc_branch_act``, the batch statistics from the B6
     kernel folded into one 5x5 conv run by the B5 kernel, which also gives
-    the SE its channel sums (the plain graph on CPU tensors). 'packed': the
+    the SE its channel sums (the plain graph on CPU tensors; inside an H
+    shard both kernels run on the block's slab). 'packed': the
     four kernels zero-padded to 5x5 and stacked into one grouped conv.
     JAX also gates 'fused' on its TPU layout (H % 8, W * expand % 128) and
     quietly takes the branch graph elsewhere; the port takes it at every
@@ -398,7 +407,9 @@ class ReparamConv(nn.Module):
                 C, BN_EPS,
             )
             stats += [(mu[i], var[i]) for i in range(4)]
-            pooled = (sums / (H * W)).to(x.dtype).reshape(B, 1, 1, C)
+            # SE's mean over the global map: this rank's sums summed over the
+            # spatial group (with a gradient) over the global H x W
+            pooled = (spatial_sum(sums) / (global_rows(H) * W)).to(x.dtype).reshape(B, 1, 1, C)
             t = self.se(t_flat.reshape(B, H, W, C), pooled=pooled)
             return self.pointwise_conv(t) + self.shortcut(x), stats
         if self.train_backend == "packed":

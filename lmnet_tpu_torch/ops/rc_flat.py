@@ -10,6 +10,13 @@ tensors it runs the plain version, ``dw_gelu_flat_plain``. The TPU weight
 layout (25 x W*C tiled taps with the border masks folded in) is not part of
 the function: the port takes the OIHW depthwise kernel ``(C, 1, 5, 5)`` and
 the ``(C,)`` bias. Unlike the TPU kernel it takes every H, W >= 1.
+
+``dw_gelu_flat`` takes a row window (``parallel/spatial.py``): a slab of
+rows, the slab row ``top`` of its first output row and its ``rows`` output
+rows; taps outside the slab read zero and the sums cover the output rows.
+Inside an H shard ``fused_rc_block`` gives it the slab of e with 2 rows of
+each neighbour (zero rows past the global edges) and all-reduces its sums
+over the spatial group before the SE.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
 from lmnet_tpu_torch.ops._build import aligned
-from lmnet_tpu_torch.parallel.spatial import refuse_on_shard
+from lmnet_tpu_torch.parallel.spatial import row_window, spatial_sum
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BN_EPS = 1e-5
@@ -48,18 +55,35 @@ def chunk_channels(C: int) -> int:
     return C if C <= DW_CHUNK else next((c for c in (32, 24, 16, 8) if C % c == 0), DW_CHUNK)
 
 
+def slab_window(Hs: int, top: int, rows: int | None) -> tuple[int, int]:
+    """(top, rows) of a row window on a slab of ``Hs`` rows (``rows`` None:
+    the slab's rows from ``top``); raises where the output rows do not lie
+    inside the slab."""
+    rows = Hs - top if rows is None else rows
+    if top < 0 or rows <= 0 or top + rows > Hs:
+        raise ValueError(f"output rows [{top}, {top + rows}) do not lie in a slab of {Hs} rows")
+    return top, rows
+
+
 @functools.lru_cache(maxsize=None)
-def dw_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
-    """The launch geometry of ``csrc/rc_dw_gelu.cu`` for e (B, H, W*C) of
-    ``dtype``, or None for a shape it does not take: ``tile`` (rows,
+def dw_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype, Hs: int | None = None,
+            top: int = 0):
+    """The launch geometry of ``csrc/rc_dw_gelu.cu`` for H output rows of e
+    (B, Hs, W*C) of ``dtype`` (``Hs`` None: H), output row r at slab row
+    ``top`` + r, or None for a shape or window it does not take: ``tile``
+    (rows,
     columns), ``chunk`` channels a block (all C up to 32, else the largest of
     32, 24, 16, 8 that divides C, else 32), ``nchunk`` chunks, ``vec`` the copy
     unit in bytes (the widest of 16, 8, 4, 2 that divides C's channel run),
     ``smem`` dynamic shared-memory bytes (the halo and t tile in e's dtype;
     taps and a partial per thread, which computes two rows, in float32),
-    ``ntiles`` tiles per image, ``workspace`` float32 per-tile channel
-    sums. Cached: the caller must not change the dict."""
+    ``ntiles`` tiles per image over the output rows, ``workspace`` float32
+    per-tile channel sums, ``window`` (Hs, top). Cached: the caller must not
+    change the dict."""
+    Hs = H if Hs is None else Hs
     if not (0 < B <= 65535 and H > 0 and W > 0 and C > 0) or dtype not in _DTYPE_CODE:
+        return None
+    if top < 0 or top + H > Hs:
         return None
     rows, cols = DW_TILE
     esize = 4 if dtype == torch.float32 else 2
@@ -71,7 +95,7 @@ def dw_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
     if ntiles > 0x7FFFFFFF or nchunk > 65535 or smem > MAX_SMEM:
         return None
     return dict(tile=DW_TILE, chunk=ck, nchunk=nchunk, vec=_vec_bytes(C * esize), smem=smem,
-                ntiles=ntiles, workspace=B * ntiles * C)
+                ntiles=ntiles, workspace=B * ntiles * C, window=(Hs, top))
 
 
 def _kernel():
@@ -81,7 +105,7 @@ def _kernel():
         p = ctypes.c_void_p
         i = ctypes.c_int
         ll = ctypes.c_longlong
-        fn.argtypes = [p] * 6 + [i] * 9 + [ll, ll, p]
+        fn.argtypes = [p] * 6 + [i] * 11 + [ll, ll, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -111,37 +135,39 @@ def _check_shapes(e_flat, kernel, bias, C: int) -> tuple[int, int, int]:
     return B, H, WC // C
 
 
-def dw_gelu_flat(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tensor, C: int):
-    """t = gelu_tanh(dw5x5(e) + b) on flat (B, H, W*C) ``e_flat``, zero
-    padding (conv semantics), float32 math.
+def dw_gelu_flat(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tensor, C: int,
+                 top: int = 0, rows: int | None = None):
+    """t = gelu_tanh(dw5x5(e) + b) on flat (B, Hs, W*C) ``e_flat``, zero
+    padding (conv semantics), float32 math, at the ``rows`` output rows
+    from slab row ``top`` (default: the whole slab); a tap outside the slab
+    reads zero.
 
     ``kernel5x5``: OIHW depthwise (C, 1, 5, 5); ``bias``: (C,). Returns
-    (t_flat in e's dtype, sums): ``sums`` is (B, C) float32, the per-image
-    channel sums of the float32 t before the cast. JAX's ``dw_gelu_flat``
-    returns (B, W*C) flat sums; its callers fold them over W, which gives
-    these. Each launch of the CUDA kernel adds one to ``dw_gelu_flat.launches``;
-    two calls with the same inputs give bitwise-equal sums. Raises inside
-    an H shard: the conv and the sums see only the block's rows (ROADMAP
-    A8c).
+    (t_flat (B, rows, W*C) in e's dtype, sums): ``sums`` is (B, C) float32,
+    the per-image channel sums over the output rows of the float32 t before
+    the cast. JAX's ``dw_gelu_flat`` returns (B, W*C) flat sums; its
+    callers fold them over W, which gives these. Each launch of the CUDA
+    kernel adds one to ``dw_gelu_flat.launches``; two calls with the same
+    inputs give bitwise-equal sums.
     """
-    refuse_on_shard("the B5 kernel (rc_backend='flat', rc_train_backend='fused')")
-    B, H, W = _check_shapes(e_flat, kernel5x5, bias, C)
+    B, Hs, W = _check_shapes(e_flat, kernel5x5, bias, C)
+    top, H = slab_window(Hs, top, rows)
     if e_flat.device.type == "cpu":
-        return dw_gelu_flat_plain(e_flat, kernel5x5, bias, C)
+        return dw_gelu_flat_plain(e_flat, kernel5x5, bias, C, top, H)
     kernel5x5 = kernel5x5.float().contiguous()
     bias = bias.float().contiguous()
     check_cuda("dw_gelu_flat", e_flat, kernel5x5, bias)
     e_flat = aligned(e_flat)
-    plan = dw_plan(B, H, W, C, e_flat.dtype)
+    plan = dw_plan(B, H, W, C, e_flat.dtype, Hs, top)
     if plan is None:
-        raise ValueError(f"rc_dw_gelu does not take B={B} H={H} W={W} C={C}")
+        raise ValueError(f"rc_dw_gelu does not take B={B} H={H} W={W} C={C} Hs={Hs} top={top}")
     fn = _kernel()
-    t = torch.empty_like(e_flat)
+    t = e_flat.new_empty((B, H, W * C))
     sums = torch.empty(B, C, dtype=torch.float32, device=e_flat.device)
     part = torch.empty(plan["workspace"], dtype=torch.float32, device=e_flat.device)
     with torch.cuda.device(e_flat.device):
         err = fn(e_flat.data_ptr(), kernel5x5.data_ptr(), bias.data_ptr(), t.data_ptr(),
-                 sums.data_ptr(), part.data_ptr(), B, H, W, C, _DTYPE_CODE[e_flat.dtype],
+                 sums.data_ptr(), part.data_ptr(), B, H, W, C, Hs, top, _DTYPE_CODE[e_flat.dtype],
                  *plan["tile"], plan["chunk"], plan["vec"], plan["smem"], plan["workspace"],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -151,13 +177,15 @@ def dw_gelu_flat(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tens
 
 
 def dw_gelu_flat_plain(e_flat: torch.Tensor, kernel5x5: torch.Tensor, bias: torch.Tensor,
-                       C: int):
+                       C: int, top: int = 0, rows: int | None = None):
     """The plain PyTorch version of ``dw_gelu_flat``: ``F.conv2d`` (groups=C)
-    in float32, tanh GELU, sums over H and W, t cast to e's dtype."""
-    B, H, W = _check_shapes(e_flat, kernel5x5, bias, C)
-    e = e_flat.reshape(B, H, W, C).permute(0, 3, 1, 2).float()
-    t = F.gelu(F.conv2d(e, kernel5x5.float(), bias.float(), padding=2, groups=C),
-               approximate="tanh")
+    in float32 on the zero-padded slab, the output rows cut out, tanh GELU,
+    sums over their H and W, t cast to e's dtype."""
+    B, Hs, W = _check_shapes(e_flat, kernel5x5, bias, C)
+    top, H = slab_window(Hs, top, rows)
+    e = e_flat.reshape(B, Hs, W, C).permute(0, 3, 1, 2).float()
+    t = F.gelu(F.conv2d(e, kernel5x5.float(), bias.float(), padding=2,
+                        groups=C)[:, :, top:top + H], approximate="tanh")
     t_flat = t.permute(0, 2, 3, 1).to(e_flat.dtype).reshape(B, H, W * C)
     return t_flat, t.sum(dim=(2, 3))
 
@@ -206,14 +234,19 @@ def fused_rc_block(x: torch.Tensor, fw: dict) -> torch.Tensor:
     expand + folded BN + hardswish (one matmul) -> the kernel (dw5x5 + bias
     + GELU + channel sums) -> the SE MLP in float32 on the kernel's sums, its
     scale cast to x's dtype -> pointwise + shortcut. As in JAX the 1x1
-    products stay outside the kernel (matmuls here, XLA there).
+    products stay outside the kernel (matmuls here, XLA there). Inside an H
+    shard the kernel runs on the slab of e with 2 rows of each neighbour
+    (zero rows past the global edges, the conv's padding), and the SE mean
+    is its sums all-reduced over the group over the global H x W.
     """
     B, H, W, _ = x.shape
     E = fw["we"].shape[0]
     dt = x.dtype
     e = F.hardswish(F.linear(x, fw["we"].to(dt), fw["be"].to(dt)))
-    t_flat, sums = dw_gelu_flat(e.reshape(B, H, W * E), fw["kd"], fw["bdw"], E)
-    s = se_scale(sums, fw, H * W)
+    slab, top, _, Hg, _ = row_window(e, 2, 2)
+    t_flat, sums = dw_gelu_flat(slab.reshape(B, slab.shape[1], W * E), fw["kd"], fw["bdw"], E,
+                                top, H)
+    s = se_scale(spatial_sum(sums), fw, Hg * W)
     t = t_flat.reshape(B, H, W, E) * s[:, None, None, :].to(dt)
     return (F.linear(t, fw["wp"].to(dt), fw["bp"].to(dt))
             + F.linear(x, fw["wsc"].to(dt), fw["bsc"].to(dt)))

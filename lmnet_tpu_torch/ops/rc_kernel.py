@@ -19,6 +19,15 @@ its matrix unit; float32 x keeps float32 products. ``rc_plan`` chooses the
 launch geometry, which the kernel checks. A failed build or launch raises.
 On CPU tensors it is ``fused_reparam_conv_plain``, which rounds at the same
 points. JAX sends maps under 8x8 to XLA; the CUDA kernel takes every H, W >= 1.
+
+Both phases take a row window (``parallel/spatial.py``; ``rc_phase1``,
+``rc_phase2``): a slab of x, the slab row ``top`` of the first output row
+and ``rows`` output rows. The expand runs inside the kernel, so a halo row
+outside the slab gives e = 0 (the depthwise's padding), not
+hardswish(be). Inside an H shard ``fused_reparam_conv`` takes the slab with
+2 rows of each neighbour and none past the global edges, all-reduces phase
+1's sums over the spatial group before the SE MLP (the global H x W's
+mean) and runs phase 2 on the same slab.
 """
 
 from __future__ import annotations
@@ -32,7 +41,6 @@ import torch.nn.functional as F
 
 from lmnet_tpu_torch.ops import _build
 from lmnet_tpu_torch.ops._build import aligned
-from lmnet_tpu_torch.parallel.spatial import refuse_on_shard
 from lmnet_tpu_torch.ops.rc_flat import (
     BN_EPS,
     MAX_SMEM,
@@ -40,7 +48,9 @@ from lmnet_tpu_torch.ops.rc_flat import (
     check_cuda,
     fold_rc_flat_weights,
     se_scale,
+    slab_window,
 )
+from lmnet_tpu_torch.parallel.spatial import global_rows, row_window, spatial_sum
 
 # csrc/rc_fused.cu's constants: two blocks for each of the H100's 132 SMs,
 # the y tiles a warp keeps in registers, the output tile's rows
@@ -111,17 +121,23 @@ def _tc_fits(d: dict, tw: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def rc_plan(B: int, H: int, W: int, Cin: int, E: int, Cout: int, dtype: torch.dtype):
-    """The launch geometry of ``csrc/rc_fused.cu`` for x (B, H, W, Cin) of
-    ``dtype`` and a (Cin, E, Cout) block, or None for a shape it does not
-    take: ``tile`` (rows, columns) of a block's output tile, ``smem`` the
+def rc_plan(B: int, H: int, W: int, Cin: int, E: int, Cout: int, dtype: torch.dtype,
+            Hs: int | None = None, top: int = 0):
+    """The launch geometry of ``csrc/rc_fused.cu`` for H output rows of x
+    (B, Hs, W, Cin) of ``dtype`` (``Hs`` None: H), output row r at slab row
+    ``top`` + r, and a (Cin, E, Cout) block, or None for a shape or window
+    it does not take: ``window`` (Hs, top), ``tile`` (rows, columns) of a
+    block's output tile, ``smem`` the
     dynamic shared-memory bytes of (phase 1, phase 2), ``workspace`` the
     float32 values of phase 1's per-tile channel sums, ``packed`` the float32
     words of ``pack_rc_weights``'s buffer. bf16 takes an 8x16 tile where it
     fits shared memory and the registers (``MAX_PAIRS`` y tiles a warp) and
     leaves at least two blocks per SM, else 8x8; float32 takes 8x8. Cached:
     the caller must not change the dict."""
+    Hs = H if Hs is None else Hs
     if not (0 < B <= 65535 and H > 0 and W > 0 and Cin > 0 and E > 0 and Cout > 0):
+        return None
+    if top < 0 or top + H > Hs:
         return None
     if -(-H // TILE_ROWS) > 65535:
         return None
@@ -146,7 +162,7 @@ def rc_plan(B: int, H: int, W: int, Cin: int, E: int, Cout: int, dtype: torch.dt
         return None
     ntiles = -(-H // TILE_ROWS) * -(-W // tw)
     return dict(tile=(TILE_ROWS, tw), smem=smem, workspace=B * ntiles * E,
-                packed=pack_layout(Cin, E, Cout)["total"])
+                packed=pack_layout(Cin, E, Cout)["total"], window=(Hs, top))
 
 
 def _kernels():
@@ -156,9 +172,9 @@ def _kernels():
         p = ctypes.c_void_p
         i = ctypes.c_int
         ll = ctypes.c_longlong
-        p1.argtypes = [p] * 4 + [i] * 9 + [ll] * 3 + [p]
+        p1.argtypes = [p] * 4 + [i] * 11 + [ll] * 3 + [p]
         p1.restype = ctypes.c_int
-        p2.argtypes = [p] * 4 + [i] * 9 + [ll] * 3 + [p]
+        p2.argtypes = [p] * 4 + [i] * 11 + [ll] * 3 + [p]
         p2.restype = ctypes.c_int
     return p1, p2
 
@@ -210,24 +226,78 @@ def fused_reparam_conv(x: torch.Tensor, w: dict) -> torch.Tensor:
     Cout) in x's dtype, with ``w`` from ``fold_rc_weights`` (the kernel reads
     only its ``packed`` buffer, which must lie on x's device).
 
-    On CUDA tensors it runs the two kernel phases (x is made contiguous
-    first, a copy where it is a permuted view or does not start on 16
-    bytes) and adds one to
-    ``fused_reparam_conv.launches`` per call; on CPU tensors it is
-    ``fused_reparam_conv_plain``. Raises inside an H shard (ROADMAP A8c):
-    its SE sums sit between its two passes.
+    On CUDA tensors it runs the two kernel phases (``rc_phase1``, the SE MLP
+    here in float32, ``rc_phase2``); on CPU tensors it is
+    ``fused_reparam_conv_plain``. Inside an H shard ``x`` is this rank's
+    rows: both phases run on its slab with 2 rows of each neighbour (none
+    past the global edges) and phase 1's sums are all-reduced over the
+    spatial group before the SE.
     """
-    refuse_on_shard("the B4 kernel (rc_backend='pallas')")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
+    slab, top, rows, Hg, _ = row_window(x, 2, 2, edges=False)
     if x.device.type == "cpu":
-        return fused_reparam_conv_plain(x, w)
+        return fused_reparam_conv_plain(slab, w, top, rows)
+    slab = aligned(slab.contiguous())  # once for both phases
+    s = se_scale(spatial_sum(rc_phase1(slab, w, top, rows)), w, Hg * x.shape[2])
+    return rc_phase2(slab, w, s, top, rows)
+
+
+def _cuda_args(x: torch.Tensor, w: dict, top: int, rows: int | None):
+    """Check contiguous CUDA ``x`` (a slab of Hs rows) and ``w``: (x made
+    contiguous and 16-byte aligned, the launch's shape arguments, the plan,
+    the output rows)."""
     x = aligned(x.contiguous())
-    sums, geo, plan = _phase1(x, w)
-    B, H, W = x.shape[:3]
-    Cout = w["wp"].shape[0]
-    s = se_scale(sums, w, H * W).contiguous()
-    out = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
+    B, Hs, W, Cin = x.shape
+    top, H = slab_window(Hs, top, rows)
+    E, Cout = w["we"].shape[0], w["wp"].shape[0]
+    if tuple(w["we"].shape) != (E, Cin) or tuple(w["kdw"].shape) != (25, E):
+        raise ValueError(f"weights do not fit x with {Cin} channels: we {tuple(w['we'].shape)}, "
+                         f"kdw {tuple(w['kdw'].shape)}")
+    packed = w.get("packed")
+    if packed is None:
+        raise ValueError("w has no 'packed' buffer: fold the weights with fold_rc_weights "
+                         "or add pack_rc_weights(w)")
+    check_cuda("fused_reparam_conv", x, packed)
+    plan = rc_plan(B, H, W, Cin, E, Cout, x.dtype, Hs, top)
+    if plan is None or packed.numel() != plan["packed"]:
+        raise ValueError(f"rc_fused does not take B={B} H={H} W={W} Cin={Cin} E={E} Cout={Cout} "
+                         f"Hs={Hs} top={top} with {packed.numel()} packed weights")
+    geo = (B, H, W, Cin, E, Cout, Hs, top, _DTYPE_CODE[x.dtype], *plan["tile"])
+    return x, geo, plan, H
+
+
+def rc_phase1(x: torch.Tensor, w: dict, top: int = 0, rows: int | None = None) -> torch.Tensor:
+    """Phase 1 on the slab ``x`` (B, Hs, W, Cin): the per-image channel sums
+    of t over the ``rows`` output rows from slab row ``top`` (default the
+    whole slab), float32 (B, E). The kernel on a CUDA tensor, else the plain
+    version."""
+    if x.device.type == "cpu":
+        return _plain_t(x, w, top, rows).sum(dim=(2, 3))
+    x, geo, plan, _ = _cuda_args(x, w, top, rows)
+    sums = torch.empty(geo[0], geo[4], dtype=torch.float32, device=x.device)
+    part = torch.empty(plan["workspace"], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels()[0](x.data_ptr(), w["packed"].data_ptr(), sums.data_ptr(),
+                            part.data_ptr(), *geo, plan["smem"][0], plan["workspace"],
+                            plan["packed"], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rc_fused phase 1 launch failed: CUDA error {err}")
+    return sums
+
+
+def rc_phase2(x: torch.Tensor, w: dict, s: torch.Tensor, top: int = 0,
+              rows: int | None = None) -> torch.Tensor:
+    """Phase 2 on the slab ``x`` with the SE scale ``s`` (B, E) float32: the
+    block's ``rows`` output rows from slab row ``top``, (B, rows, W, Cout)
+    in x's dtype. The kernel on a CUDA tensor (one more in
+    ``fused_reparam_conv.launches``: a block computed), else the plain
+    version."""
+    if x.device.type == "cpu":
+        return _plain_y(x, w, _plain_t(x, w, top, rows), s, top)
+    x, geo, plan, H = _cuda_args(x, w, top, rows)
+    out = torch.empty(geo[0], H, geo[2], geo[5], dtype=x.dtype, device=x.device)
+    s = s.float().contiguous()
     with torch.cuda.device(x.device):
         err = _kernels()[1](x.data_ptr(), s.data_ptr(), w["packed"].data_ptr(), out.data_ptr(),
                             *geo, plan["smem"][1], plan["workspace"], plan["packed"],
@@ -238,58 +308,47 @@ def fused_reparam_conv(x: torch.Tensor, w: dict) -> torch.Tensor:
     return out
 
 
-def _phase1(x: torch.Tensor, w: dict):
-    """Check contiguous CUDA ``x`` and ``w`` and run the kernel's phase 1:
-    returns (the per-image channel sums of t, float32 (B, E), the launch's
-    shape arguments, the plan)."""
-    B, H, W, Cin = x.shape
-    E, Cout = w["we"].shape[0], w["wp"].shape[0]
-    if tuple(w["we"].shape) != (E, Cin) or tuple(w["kdw"].shape) != (25, E):
-        raise ValueError(f"weights do not fit x with {Cin} channels: we {tuple(w['we'].shape)}, "
-                         f"kdw {tuple(w['kdw'].shape)}")
-    packed = w.get("packed")
-    if packed is None:
-        raise ValueError("w has no 'packed' buffer: fold the weights with fold_rc_weights "
-                         "or add pack_rc_weights(w)")
-    check_cuda("fused_reparam_conv", x, packed)
-    plan = rc_plan(B, H, W, Cin, E, Cout, x.dtype)
-    if plan is None or packed.numel() != plan["packed"]:
-        raise ValueError(f"rc_fused does not take B={B} H={H} W={W} Cin={Cin} E={E} Cout={Cout} "
-                         f"with {packed.numel()} packed weights")
-    sums = torch.empty(B, E, dtype=torch.float32, device=x.device)
-    part = torch.empty(plan["workspace"], dtype=torch.float32, device=x.device)
-    geo = (B, H, W, Cin, E, Cout, _DTYPE_CODE[x.dtype], *plan["tile"])
-    with torch.cuda.device(x.device):
-        err = _kernels()[0](x.data_ptr(), packed.data_ptr(), sums.data_ptr(), part.data_ptr(),
-                            *geo, plan["smem"][0], plan["workspace"], plan["packed"],
-                            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rc_fused phase 1 launch failed: CUDA error {err}")
-    return sums, geo, plan
+def _mat(w: dict, k: str, bf16: bool) -> torch.Tensor:
+    return w[k].to(torch.bfloat16).float() if bf16 else w[k].float()
 
 
-def fused_reparam_conv_plain(x: torch.Tensor, w: dict) -> torch.Tensor:
-    """The plain version, cast to x's dtype at the end. float32 x: float32
-    throughout (JAX's ``_rc_xla``). bfloat16 x: the kernel's rounding points,
-    We, Wp, Wsc and t * s rounded to bf16, everything else (e included)
-    float32."""
+def _plain_t(x: torch.Tensor, w: dict, top: int, rows: int | None) -> torch.Tensor:
+    """t of the plain version at the output rows, float32 NCHW (B, E, rows,
+    W): the expand over the slab, the zero-padded depthwise, GELU."""
     E = w["we"].shape[0]
-    bf16 = x.dtype == torch.bfloat16
-
-    def mat(k):
-        return w[k].to(torch.bfloat16).float() if bf16 else w[k].float()
-
-    xf = x.float()
-    e = F.hardswish(F.linear(xf, mat("we"), w["be"].float()))
+    top, rows = slab_window(x.shape[1], top, rows)
+    e = F.hardswish(F.linear(x.float(), _mat(w, "we", x.dtype == torch.bfloat16),
+                             w["be"].float()))
     kd = w["kdw"].float().t().reshape(E, 1, 5, 5)
-    t = F.gelu(F.conv2d(e.permute(0, 3, 1, 2), kd, w["bdw"].float(), padding=2, groups=E),
-               approximate="tanh")
-    s = se_scale(t.sum(dim=(2, 3)), w, t.shape[2] * t.shape[3])
+    t = F.conv2d(e.permute(0, 3, 1, 2), kd, w["bdw"].float(), padding=2, groups=E)
+    if (top, rows) != (0, x.shape[1]):
+        t = t[:, :, top:top + rows]
+    return F.gelu(t, approximate="tanh")
+
+
+def _plain_y(x: torch.Tensor, w: dict, t: torch.Tensor, s: torch.Tensor, top: int):
+    """y of the plain version from its t (B, E, rows, W) and SE scale s."""
+    bf16 = x.dtype == torch.bfloat16
     t = (t * s[:, :, None, None]).permute(0, 2, 3, 1)
     if bf16:
         t = t.to(torch.bfloat16).float()
-    y = F.linear(t, mat("wp"), w["bp"].float()) + F.linear(xf, mat("wsc"), w["bsc"].float())
+    xf = x[:, top:top + t.shape[1]].float()
+    y = (F.linear(t, _mat(w, "wp", bf16), w["bp"].float())
+         + F.linear(xf, _mat(w, "wsc", bf16), w["bsc"].float()))
     return y.to(x.dtype)
+
+
+def fused_reparam_conv_plain(x: torch.Tensor, w: dict, top: int = 0,
+                             rows: int | None = None) -> torch.Tensor:
+    """The plain version, cast to x's dtype at the end, on the slab ``x`` at
+    the ``rows`` output rows from slab row ``top`` (default the whole map).
+    float32 x: float32 throughout (JAX's ``_rc_xla``). bfloat16 x: the
+    kernel's rounding points, We, Wp, Wsc and t * s rounded to bf16,
+    everything else (e included) float32. Inside an H shard the SE's sums
+    are all-reduced over the spatial group (the global H x W's mean)."""
+    t = _plain_t(x, w, top, rows)
+    s = se_scale(spatial_sum(t.sum(dim=(2, 3))), w, global_rows(t.shape[2]) * t.shape[3])
+    return _plain_y(x, w, t, s, top)
 
 
 fused_reparam_conv.launches = 0

@@ -16,7 +16,8 @@ Inside a shard of the mesh's 'spatial' axis (``parallel/batch.py::shard``)
 'einsum' upsamples this rank's block of rows in global coordinates: each
 output row's two source rows and weight come from the global H, read from
 the block with one row of each neighbour; W goes through ``F.interpolate``.
-'flat' (B7 reads only its own rows) raises there (ROADMAP A8c).
+'flat' runs B7 there on the same slab, in global coordinates
+(``ops/upsample_flat.py``).
 """
 
 from __future__ import annotations

@@ -183,10 +183,10 @@ def global_count(t: torch.Tensor) -> int:
     return t.numel() // t.shape[0] * rows * _h_blocks()
 
 
-def moments(xf: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+def moments(xf: torch.Tensor, dims, h_axis: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """float32 mean and biased variance E[x^2] - E[x]^2 (clamped at 0) of
     float32 ``xf`` over ``dims``, which hold the batch axis 0 (and H, axis
-    1, inside a shard). Outside a global batch it is flax's
+    ``h_axis``: 1 in NHWC, 2 in NCHW, inside a shard). Outside a global batch it is flax's
     ``_compute_stats`` (means of x and x^2); inside, the sums of x and x^2
     are all-reduced in one call and divided by the global count. Inside a
     shard it needs a global batch: a block's own statistics are not the
@@ -201,7 +201,7 @@ def moments(xf: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     n = 1
     for d in dims:
         n *= xf.shape[d]
-    n = n // xf.shape[0] * b.rows * (_h_blocks() if 1 in dims else 1)
+    n = n // xf.shape[0] * b.rows * (_h_blocks() if h_axis in dims else 1)
     s = global_sum(torch.stack([xf.sum(dim=dims), xf.square().sum(dim=dims)]))
     mean = s[0] / n
     return mean, torch.clamp(s[1] / n - mean.square(), min=0.0)

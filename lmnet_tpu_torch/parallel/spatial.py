@@ -22,8 +22,17 @@ so each of the model's five scales divides too. Then
 * ``gather_rows(x)`` gives every rank the whole map (the GFT bottleneck);
   its backward sums the gradients over the ranks and keeps this rank's
   rows, the adjoint of the gather;
-* ``refuse_on_shard(what)`` raises for a kernel that does not take a row
-  window yet (ROADMAP A8c).
+* ``spatial_sum(t)`` is ``t`` summed over the shard's ranks, with a
+  gradient (the per-rank channel sums of a kernel that runs on a row
+  window); ``global_rows(h)`` the global H of a map of ``h`` local rows,
+  and ``row_window(x, top, bottom)`` the slab a row-window kernel takes
+  with where this rank's rows lie in it and in the global map.
+
+A row-window kernel (B4-B7) takes a slab of ``Hs`` rows and the slab row
+``top`` of its first output row; it writes ``rows`` output rows and reads
+zero for a tap whose row falls outside the slab, so on a slab made with
+``edges=False`` it never needs to know where the global map ends; its sums
+cover the output rows alone.
 
 Outside a shard, and inside ``batch.whole()``, ``halo`` and ``crop`` give x
 back and ``spatial_mean`` is ``x.mean``: the one-process code, unchanged.
@@ -45,18 +54,6 @@ import torch.distributed as dist
 
 from lmnet_tpu_torch.parallel.batch import COUNTS, _AllReduceSum, current_shard
 
-A8C = ("ROADMAP A8c: give B4-B7 a row window, halo rows in, interior rows out and sums "
-       "over the interior")
-
-
-def refuse_on_shard(what: str) -> None:
-    """Raise NotImplementedError inside a shard: ``what`` does not run on a
-    block of rows yet. Nothing gathers the image to run it whole."""
-    if current_shard() is not None:
-        raise NotImplementedError(f"{what} does not run on an H shard (--n_spatial > 1) yet "
-                                  f"({A8C}); take the plain backend there")
-
-
 def _sum(buf: torch.Tensor, group, key: str) -> torch.Tensor:
     dist.all_reduce(buf, group=group)
     COUNTS[key] += 1
@@ -71,10 +68,10 @@ def _edge_rows(top: int, bottom: int, edges: bool, index: int, size: int) -> tup
 class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, index, size, top, bottom, edges):
-        B, h, W, C = x.shape
+        B, h, *rest = x.shape
         ctx.cfg = (group, index, size, top, bottom, edges, h)
         wide = torch.promote_types(x.dtype, torch.float32)
-        buf = x.new_zeros((size, B, bottom + top, W, C), dtype=wide)
+        buf = x.new_zeros((size, B, bottom + top, *rest), dtype=wide)
         buf[index, :, :bottom] = x[:, :bottom]
         buf[index, :, bottom:] = x[:, h - top:]
         _sum(buf, group, "halo")
@@ -82,19 +79,19 @@ class _Halo(torch.autograd.Function):
         if index > 0:
             parts.insert(0, buf[index - 1, :, bottom:].to(x.dtype))
         elif edges and top:
-            parts.insert(0, x.new_zeros((B, top, W, C)))
+            parts.insert(0, x.new_zeros((B, top, *rest)))
         if index < size - 1:
             parts.append(buf[index + 1, :, :bottom].to(x.dtype))
         elif edges and bottom:
-            parts.append(x.new_zeros((B, bottom, W, C)))
+            parts.append(x.new_zeros((B, bottom, *rest)))
         return torch.cat(parts, dim=1)
 
     @staticmethod
     def backward(ctx, g):
         group, index, size, top, bottom, edges, h = ctx.cfg
         t, _ = _edge_rows(top, bottom, edges, index, size)
-        B, _, W, C = g.shape
-        buf = g.new_zeros((size, B, top + bottom, W, C), dtype=torch.float32)
+        B, _, *rest = g.shape
+        buf = g.new_zeros((size, B, top + bottom, *rest), dtype=torch.float32)
         if index > 0:  # the top halo's gradients belong to the rank above
             buf[index, :, :top] = g[:, :top]
         if index < size - 1:  # the bottom halo's to the rank below
@@ -109,8 +106,9 @@ class _Halo(torch.autograd.Function):
 
 
 def halo(x: torch.Tensor, top: int, bottom: int, edges: bool = True) -> torch.Tensor:
-    """NHWC ``x`` (this rank's rows) with ``top`` rows of the rank above and
-    ``bottom`` rows of the rank below. At the global top and bottom: zero
+    """NHWC ``x`` (this rank's rows; any layout with the rows on axis 1)
+    with ``top`` rows of the rank above and ``bottom`` rows of the rank
+    below. At the global top and bottom: zero
     rows with ``edges``, else none. Differentiable. ``x`` itself outside a
     shard."""
     s = current_shard()
@@ -132,15 +130,40 @@ def crop(y: torch.Tensor, top: int, bottom: int, edges: bool = True) -> torch.Te
     return y[:, t:y.shape[1] - b]
 
 
+def row_window(x: torch.Tensor, top: int, bottom: int, edges: bool = True):
+    """(``halo(x, top, bottom, edges)``, the slab row of this rank's first
+    row, this rank's rows, the global H, the global row of this rank's
+    first row): what a row-window kernel takes. Outside a shard (x, 0, H,
+    H, 0)."""
+    h = x.shape[1]
+    s = current_shard()
+    if s is None:
+        return x, 0, h, h, 0
+    t, _ = _edge_rows(top, bottom, edges, s.index, s.size)
+    return halo(x, top, bottom, edges), t, h, h * s.size, h * s.index
+
+
+def global_rows(h: int) -> int:
+    """The global H of a map of which this rank holds ``h`` rows."""
+    s = current_shard()
+    return h if s is None else h * s.size
+
+
+def spatial_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the shard's ranks (an all-reduce with a gradient);
+    ``t`` itself outside a shard."""
+    s = current_shard()
+    return t if s is None else _AllReduceSum.apply(t, s.group)
+
+
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """The (B, 1, 1, C) mean of NHWC ``x`` over H and W, in x's dtype; inside
     a shard over the global map: float32 sums all-reduced over the group,
     with a gradient."""
-    s = current_shard()
-    if s is None:
+    if current_shard() is None:
         return x.mean(dim=(1, 2), keepdim=True)
-    total = _AllReduceSum.apply(x.float().sum(dim=(1, 2), keepdim=True), s.group)
-    return (total / (x.shape[1] * s.size * x.shape[2])).to(x.dtype)
+    total = spatial_sum(x.float().sum(dim=(1, 2), keepdim=True))
+    return (total / (global_rows(x.shape[1]) * x.shape[2])).to(x.dtype)
 
 
 class _GatherRows(torch.autograd.Function):

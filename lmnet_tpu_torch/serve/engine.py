@@ -28,9 +28,10 @@ partition). ``serving_evaluate(spatial=True)`` also splits the image H over
 the mesh's 'spatial' axis where it divides (``parallel/mesh.py::
 shards_h``): ``deploy_forward`` then runs inside the shard, with the halo
 exchanges, SE's global mean, the gathered GFT and NAT on slabs of
-``models/blocks.py`` (B1 on each rank's slab). 'flat' and 'pallas'
-ReparamConv (B5, B4) and the B7 upsample raise there (ROADMAP A8c); the
-autotune draws only from the candidates that run on a shard.
+``models/blocks.py`` (B1 on each rank's slab); 'flat' and 'pallas'
+ReparamConv run B5 or B4 on each rank's slab with their SE sums
+all-reduced over the spatial group, and the flat upsample B7 on the
+rank's slab in global coordinates.
 """
 
 from __future__ import annotations
@@ -328,8 +329,8 @@ def deploy_forward(
     differs, see ``_compose_kk``).
 
     Inside a shard (``parallel/batch.py::shard``) ``x`` is this rank's block
-    of rows and so are the logits; every option runs there, 'flat' and
-    'pallas' ReparamConv do not (ROADMAP A8c).
+    of rows and so are the logits; every backend and option runs there
+    ('flat' and 'pallas' ReparamConv on the rank's slab).
     """
     if rc_backend not in RC_BACKENDS:
         raise ValueError(f"rc_backend must be one of {RC_BACKENDS}, not {rc_backend!r}")
@@ -452,10 +453,9 @@ def autoselect_backends(
 def _resolve_auto(deploy_vars: Tensors, x: torch.Tensor, num_heads: int, rc_backend,
                   nat_backend, natt_int8: bool = False) -> tuple:
     """Expand 'auto' in either slot through ``autoselect_backends``, pinning
-    a slot that is not 'auto' to its value; inside a shard 'auto' draws only
-    from the ReparamConv backends that run there ('xla')."""
-    rc_auto = ("xla",) if current_shard() is not None else ("xla", "flat")
-    rc_cands = rc_auto if rc_backend == "auto" else (rc_backend,)
+    a slot that is not 'auto' to its value; 'auto' draws ReparamConv from
+    ('xla', 'flat'), on a shard too, as JAX's."""
+    rc_cands = ("xla", "flat") if rc_backend == "auto" else (rc_backend,)
     nat_cands = ("flat", "plain") if nat_backend == "auto" else (nat_backend,)
     return autoselect_backends(deploy_vars, x, num_heads, rc_candidates=rc_cands,
                                nat_candidates=nat_cands, natt_int8=natt_int8)

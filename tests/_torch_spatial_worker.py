@@ -12,12 +12,19 @@ on the spec's device (the CPU, or ranks sharing one card), builds a (world
             mean, the GFT, NAT on a slab, the dropout cut
   step      one train_step of the TINY model on the spec's global batch
             (dropout off): loss, gradients, running statistics, parameters
+  fused     the same step with rc_train_backend='fused' and the 'flat'
+            upsample (B6, B5 and B7 on the rank's slabs; their plain
+            versions on the CPU), and its collectives
+  serve_rc  the float32 logits of this rank's block through deploy_forward
+            with rc_backend 'flat' (B5) and 'pallas' (B4), with the
+            'einsum' and the 'flat' upsample (B7)
   eval      evaluate and serving_evaluate with HD95 over a val set
   options   the float32 logits of this rank's block: deploy_forward with
             natt_int8, ln_fold and skip_compose, and the train-mode forward
             with rc_train_backend='packed'
   fallback  an epoch and evaluate at an H the axis does not shard
   cli       the CLI with --distributed True --n_spatial 2 --device cpu
+  cli_fused the same with --rc_train_backend fused and the 'flat' upsample
   card      on the card: one float32 train_step of the full-width model,
             'flat' NAT (B1 and B2 on the rank's slabs), dropout on, and
             the rank's B1 and B2 launches in it
@@ -38,6 +45,7 @@ torch.set_num_threads(1)
 from lmnet_tpu_torch.data import SyntheticDataset, make_loader  # noqa: E402
 from lmnet_tpu_torch.metrics import ConfusionAccumulator  # noqa: E402
 from lmnet_tpu_torch.models import LMNet, blocks  # noqa: E402
+from lmnet_tpu_torch.ops import resize  # noqa: E402
 from lmnet_tpu_torch.ops.resize import upsample2x_align_corners  # noqa: E402
 from lmnet_tpu_torch.parallel import batch as pbatch  # noqa: E402
 from lmnet_tpu_torch.parallel import dist_utils  # noqa: E402
@@ -119,11 +127,13 @@ def case_prims(spec, mesh, out):
     out["prims"] = got
 
 
-def case_step(spec, mesh, out):
+def _sharded_step(spec, mesh, **model_kw):
+    """One train_step of the TINY model on the spec's global batch, dropout
+    off: loss, confusion matrix, collectives, gradients and state."""
     blocks.DROPOUT = 0.0
     data = torch.load(spec["batch"], weights_only=True)
     x, y = data["x"], data["y"]
-    state = create_train_state(_model(spec), tuple(x.shape), device="cpu")
+    state = create_train_state(_model(spec, **model_kw), tuple(x.shape), device="cpu")
     replicate(mesh, state)
     xs, ys = shard_batch(mesh, x, y, spatial=True)
     before = dict(pbatch.COUNTS)
@@ -131,12 +141,39 @@ def case_step(spec, mesh, out):
                                  global_rows=len(x), spatial=True)
     counts = {k: pbatch.COUNTS[k] - before[k] for k in before}
     torch.distributed.all_reduce(cm, group=sum_group(mesh, True))
-    out["step"] = {
+    blocks.DROPOUT = 0.1
+    return {
         "loss": loss, "cm": cm, "collectives": counts,
         "grads": {n: p.grad.clone() for n, p in state.model.named_parameters()},
         "state": {k: v.clone() for k, v in state.model.state_dict().items()},
     }
-    blocks.DROPOUT = 0.1
+
+
+def case_step(spec, mesh, out):
+    out["step"] = _sharded_step(spec, mesh)
+
+
+def case_fused(spec, mesh, out):
+    resize.UPSAMPLE_BACKEND = "flat"
+    out["fused"] = _sharded_step(spec, mesh, rc_train_backend="fused")
+    resize.UPSAMPLE_BACKEND = "einsum"
+
+
+def case_serve_rc(spec, mesh, out):
+    from lmnet_tpu_torch.models import structural_reparam
+    from lmnet_tpu_torch.serve import deploy_forward
+
+    data = torch.load(spec["batch"], weights_only=True)
+    x = data["x"][:, h_rows(mesh, data["x"].shape[1])]
+    deploy = structural_reparam(_model(spec).state_dict())
+    got = {}
+    with shard_context(mesh, True), torch.no_grad():
+        for up in ("einsum", "flat"):
+            resize.UPSAMPLE_BACKEND = up
+            for rc in ("flat", "pallas"):
+                got[rc, up] = deploy_forward(deploy, x, spec["tiny"]["num_heads"], "plain", rc)
+    resize.UPSAMPLE_BACKEND = "einsum"
+    out["serve_rc"] = got
 
 
 def case_eval(spec, mesh, out):
@@ -185,14 +222,19 @@ def case_fallback(spec, mesh, out):
                        "state": {k: v.clone() for k, v in state.model.state_dict().items()}}
 
 
-def case_cli(spec, out):
+def case_cli(spec, out, fused=False):
     from lmnet_tpu_torch.cli import train as cli
 
-    argv = spec["cli_argv"] + ["--distributed", "True", "--n_spatial", "2"]
+    argv = spec["cli_argv" if not fused else "cli_fused_argv"]
+    argv = argv + ["--distributed", "True", "--n_spatial", "2"]
+    if fused:
+        argv += ["--rc_train_backend", "fused"]
+        resize.UPSAMPLE_BACKEND = "flat"
     cli.main(argv + ["--epochs", "2"])
     cli.main(argv + ["--epochs", "2", "--test", "--hd95"])
     cli.main(argv + ["--epochs", "2", "--test", "--serve"])
-    out["cli"] = True
+    resize.UPSAMPLE_BACKEND = "einsum"
+    out["cli_fused" if fused else "cli"] = True
 
 
 def case_card(spec, mesh, out):
@@ -227,8 +269,8 @@ def main():
     mesh = make_mesh(n_spatial=spec["n_spatial"], device_type=device)
     out = {}
     for case in spec["cases"]:
-        if case == "cli":
-            case_cli(spec, out)
+        if case in ("cli", "cli_fused"):
+            case_cli(spec, out, fused=case == "cli_fused")
         else:
             globals()[f"case_{case}"](spec, mesh, out)
     torch.save(out, os.path.join(spec["dir"], f"rank{dist_utils.get_rank()}.pt"))

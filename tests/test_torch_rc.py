@@ -659,8 +659,8 @@ def test_fused_reparam_conv_phase1_sums_repeat_bitwise(cuda, dtype, B, H, W, Cin
     rounded weights)."""
     w = _rc_weights(E, Cin, E, Cout, cuda)
     x = torch.randn(B, H, W, Cin, generator=torch.Generator().manual_seed(W)).to(cuda, dtype)
-    s1 = rc_kernel._phase1(x, w)[0]
-    s2 = rc_kernel._phase1(x, w)[0]
+    s1 = rc_kernel.rc_phase1(x, w)
+    s2 = rc_kernel.rc_phase1(x, w)
     torch.cuda.synchronize()
     assert torch.equal(s1, s2) and s1.shape == (B, E)
     mat = (lambda k: w[k].to(dtype).float())

@@ -241,3 +241,86 @@ def test_python_stats_plan_is_the_kernels_plan(cuda, dtype):
     every shape above, and both refuse the same shapes."""
     for shape in [*ALL_STATS, (0, 8, 8, 8), (1, 0, 8, 8), (70000, 8, 8, 8)]:
         assert kernel_stats_plan(*shape, dtype) == stats_plan(*shape, dtype), shape
+
+
+# (B, h, W, Cin, E, Cout) a rank's row window gives B4, B5 and B6: the five
+# block shapes of chip_smoke.py phase 21 (B = 4, 256 .. 32 rows a rank) and
+# the CPU tests' small maps
+WINDOW_RC = sorted({(_SMOKE.SPATIAL_BATCH, *s) for s in _SMOKE.SPATIAL_RC}
+                   | {(2, 8, 12, 6, 16, 8), (2, 4, 12, 6, 16, 8), (3, 16, 16, 4, 8, 4),
+                      (2, 4, 8, 8, 16, 8)})
+
+
+def _windows(h, halo, edges):
+    """(Hs, top) of the slabs of h rows a rank of 2 or 4 takes with ``halo``
+    rows of each neighbour: with ``edges`` zero rows past the global edges
+    (every slab h + 2 halo rows), else the first, middle and last rank's."""
+    if edges:
+        return [(h + 2 * halo, halo)]
+    return [(h + halo, 0), (h + 2 * halo, halo), (h + halo, halo)]
+
+
+def _tiles_cover_and_read_inside(plan, h, W, reach, padded):
+    """The plan's tiles cover the h output rows (and W) exactly once; each
+    tile's own rows lie inside the slab; with ``padded`` (the slab carries
+    the zero rows past the global edges) so does every row its taps reach
+    (``reach`` rows each side), else the taps past the slab are the ones the
+    kernel zero-fills (the global padding)."""
+    Hs, top = plan["window"]
+    rows, cols = plan["tile"]
+    ty, tx = -(-h // rows), -(-W // cols)
+    seen = np.zeros(h, dtype=int)
+    for t in range(ty):
+        first, last = t * rows, min((t + 1) * rows, h)
+        seen[first:last] += 1
+        assert 0 <= top + first and top + last <= Hs
+        if padded:
+            assert top + first - reach >= 0 and top + last + reach <= Hs
+    assert (seen == 1).all() and tx * cols >= W > (tx - 1) * cols
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,h,W,Cin,E,Cout", WINDOW_RC)
+def test_window_plans_cover_the_rows_and_read_inside_the_slab(dtype, B, h, W, Cin, E, Cout):
+    """B5's and B6's plans on slabs of h + 4 rows from row 2 (zero rows past
+    the global edges), B4's on the first, middle and last rank's slabs (no
+    row past the global edges): the geometry of the whole map's h rows (the
+    tiles, chunks, shared memory and partials do not depend on the slab),
+    the window recorded, the tiles covering the h output rows once, every
+    read inside the slab."""
+    for (Hs, top) in _windows(h, 2, edges=True):
+        for fn in (dw_plan, stats_plan):
+            plan, whole = fn(B, h, W, E, dtype, Hs, top), fn(B, h, W, E, dtype)
+            assert plan["window"] == (Hs, top) and whole["window"] == (h, 0)
+            assert {k: v for k, v in plan.items() if k != "window"} == \
+                {k: v for k, v in whole.items() if k != "window"}
+            _tiles_cover_and_read_inside(plan, h, W, 2, padded=True)
+    for (Hs, top) in _windows(h, 2, edges=False):
+        plan, whole = rc_plan(B, h, W, Cin, E, Cout, dtype, Hs, top), rc_plan(B, h, W, Cin, E,
+                                                                               Cout, dtype)
+        assert plan["window"] == (Hs, top)
+        assert {k: v for k, v in plan.items() if k != "window"} == \
+            {k: v for k, v in whole.items() if k != "window"}
+        _tiles_cover_and_read_inside(plan, h, W, 2, padded=False)
+
+
+@pytest.mark.parametrize("fn", ["dw_plan", "stats_plan", "rc_plan"])
+def test_window_plans_refuse_rows_outside_the_slab(fn):
+    args = {"dw_plan": (2, 8, 8, 8), "stats_plan": (2, 8, 8, 8), "rc_plan": (2, 8, 8, 4, 8, 4)}
+    f = {"dw_plan": dw_plan, "stats_plan": stats_plan, "rc_plan": rc_plan}[fn]
+    a = args[fn]
+    assert f(*a, torch.bfloat16, 10, 2) is not None
+    assert f(*a, torch.bfloat16, 10, 3) is None  # rows 3 .. 10 pass the slab's 10
+    assert f(*a, torch.bfloat16, 7, 0) is None  # 8 output rows, a slab of 7
+    assert f(*a, torch.bfloat16, 12, -1) is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_python_stats_plan_is_the_kernels_plan_on_a_window(cuda, dtype):
+    """On the slab windows too, stats_plan and the kernel's plan agree, and
+    both refuse output rows outside the slab."""
+    for B, h, W, _, E, _ in WINDOW_RC:
+        for Hs, top in _windows(h, 2, edges=True) + [(h, 1), (h - 1, 0)]:
+            assert kernel_stats_plan(B, h, W, E, dtype, Hs, top) == \
+                stats_plan(B, h, W, E, dtype, Hs, top), (B, h, W, E, Hs, top)

@@ -18,12 +18,18 @@ check holds the ranks' blocks against the whole map in one process:
   _close_grads``, running statistics rtol 1e-4 / atol 1e-5 x max), which
   also holds the gradient's scale (the mean over all n_data x n_spatial
   ranks, not n_spatial x it); the ranks end bitwise equal;
+* the same step with rc_train_backend='fused' and the 'flat' upsample
+  (B6, B5 and B7 on each rank's slab; their plain windowed versions on the
+  CPU) by the same rules;
+* deploy_forward with rc_backend 'flat' (B5) and 'pallas' (B4) and the
+  'flat' upsample (B7) on the blocks against JAX's deploy_forward on the
+  whole map, fp32 rtol 1e-4 / atol 1e-5 (the serving row of PERF.md);
 * evaluate and serving_evaluate as ``tests/test_torch_parallel.py``, the CLI
-  rows within 5e-4; the deploy options and 'packed' on a shard; the
-  fallback at an H the axis does not shard;
+  rows within 5e-4 (also with --rc_train_backend fused and the flat
+  upsample); the deploy options and 'packed' on a shard; the fallback at
+  an H the axis does not shard;
 
-and, in this process, the rule that picks the blocks and each backend that
-refuses a shard (ROADMAP A8c).
+and, in this process, the rule that picks the blocks.
 """
 
 import csv
@@ -128,12 +134,12 @@ def launched(variables, tmp_path_factory):
     for mesh, world in MESHES.items():
         d = root / mesh
         d.mkdir()
-        cases = (["prims", "step", "eval", "options", "fallback", "cli"] if world == 2
-                 else ["step"])
+        cases = (["prims", "step", "fused", "serve_rc", "eval", "options", "fallback", "cli",
+                  "cli_fused"] if world == 2 else ["step", "fused", "serve_rc"])
         spec = dict(tiny=TINY, hw=HW, fallback_hw=FALLBACK_HW, seed=SEED, n_spatial=2,
                     state_dict=str(root / "sd.pt"), batch=str(root / "batch.pt"),
                     prims=str(root / "prims.pt"), dir=str(d), cli_argv=_cli_argv(d),
-                    cases=cases)
+                    cli_fused_argv=_cli_argv(d / "fused"), cases=cases)
         (d / "spec.json").write_text(json.dumps(spec))
         port = _free_port()
         procs = []
@@ -173,6 +179,19 @@ def jax_step(variables, launched):
     sd = convert.jax_to_state_dict({"params": variables["params"], "batch_stats": stats})
     return (float(loss), {k: v.numpy() for k, v in sd.items() if "running" in k},
             {k: v.numpy() for k, v in convert.jax_to_state_dict({"params": grads}).items()})
+
+
+@pytest.fixture(scope="module")
+def jax_logits(variables, launched):
+    """JAX's float32 deploy_forward ('xla' ReparamConv and NAT) on the whole
+    global batch, computed while the ranks run."""
+    from lmnet_tpu.models import structural_reparam
+    from lmnet_tpu.serve import deploy_forward
+
+    deploy = jax.device_get(structural_reparam(variables))
+    return np.asarray(deploy_forward(deploy, jnp.asarray(_global_batch()[0]),
+                                     num_heads=TINY["num_heads"], nat_backend="xla",
+                                     rc_backend="xla"))
 
 
 @pytest.fixture(scope="module")
@@ -257,15 +276,12 @@ def test_dropout_masks_are_cut_from_the_global_mask(ranks):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-def test_tiny_step_matches_jax_and_one_process(variables, jax_step, ranks, mesh, monkeypatch):
-    """One train_step of TINY at 32^2 with H over the 'spatial' axis (blocks
-    of 16 rows) against JAX's step on the global batch and the port's one
-    process: the loss, every gradient (their scale included: the world's
-    mean), the running statistics, the confusion matrix; the ranks end
+def _step_matches(variables, jax_step, got, monkeypatch, **model_kw):
+    """The ranks' step results ``got`` against JAX's step on the global batch
+    and the port's one-process step with ``model_kw``: the loss, every
+    gradient, the running statistics, the confusion matrix; the ranks end
     bitwise equal."""
     j_loss, j_stats, j_grads = jax_step
-    got = [r["step"] for r in ranks[mesh]]
     np.testing.assert_allclose(float(got[0]["loss"]), j_loss, rtol=1e-5)
     _close_grads({k: g.numpy() for k, g in got[0]["grads"].items()}, j_grads)
     for k, want in j_stats.items():
@@ -277,13 +293,103 @@ def test_tiny_step_matches_jax_and_one_process(variables, jax_step, ranks, mesh,
 
     monkeypatch.setattr(t_blocks, "DROPOUT", 0.0)
     x, y = _global_batch()
-    state = create_train_state(_port_model(variables), (B, HW, HW, 3), device="cpu")
+    state = create_train_state(_port_model(variables, **model_kw), (B, HW, HW, 3),
+                               device="cpu")
     state, loss, cm = train_step(state, torch.from_numpy(x), torch.from_numpy(y).long(),
                                  ConfusionAccumulator.init(2))
     np.testing.assert_allclose(float(got[0]["loss"]), float(loss), rtol=1e-5)
     assert torch.equal(got[0]["cm"], cm)
     _close_grads({k: g.numpy() for k, g in got[0]["grads"].items()},
                  {n: p.grad.numpy() for n, p in state.model.named_parameters()})
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_tiny_step_matches_jax_and_one_process(variables, jax_step, ranks, mesh, monkeypatch):
+    """One train_step of TINY at 32^2 with H over the 'spatial' axis (blocks
+    of 16 rows) against JAX's step on the global batch and the port's one
+    process: the loss, every gradient (their scale included: the world's
+    mean), the running statistics, the confusion matrix; the ranks end
+    bitwise equal."""
+    _step_matches(variables, jax_step, [r["step"] for r in ranks[mesh]], monkeypatch)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_tiny_fused_flat_step_matches_jax_and_one_process(variables, jax_step, ranks, mesh,
+                                                          monkeypatch):
+    """The step with rc_train_backend='fused' and the 'flat' upsample on the
+    blocks (B6's statistics and B5's SE sums over each rank's slab, then
+    over the world; B7 in global coordinates; the fused backward on the
+    slab, its halo rows' gradients sent home) against JAX's step on the
+    global batch and the port's one-process 'fused' + 'flat' step, by the
+    same rules."""
+    monkeypatch.setattr(resize, "UPSAMPLE_BACKEND", "flat")
+    _step_matches(variables, jax_step, [r["fused"] for r in ranks[mesh]], monkeypatch,
+                  rc_train_backend="fused")
+
+
+def test_collectives_a_fused_sharded_step(ranks):
+    """The 'fused' + 'flat' step issues the same collectives on every rank of
+    both meshes, and on CPU tensors (where 'fused' is the plain branch
+    graph on the slab and B7 its plain windowed lerp) the 'xla' step's: one
+    exchange of 2 rows a ReparamConv block, one row each side an upsample,
+    the same BatchNorm and SE sums."""
+    counts = [r["fused"]["collectives"] for m in MESHES for r in ranks[m]]
+    assert all(c == counts[0] for c in counts), counts
+    assert counts[0] == ranks["1x2"][0]["step"]["collectives"]
+
+
+def _joined(ranks, mesh, key):
+    """Each data rank's blocks of the ranks' ``serve_rc[key]`` joined in
+    rank order (rank = data x 2 + spatial): one whole batch a data rank."""
+    got = [r["serve_rc"][key] for r in ranks[mesh]]
+    return [torch.cat(got[d:d + 2], dim=1) for d in range(0, len(got), 2)]
+
+
+@pytest.mark.parametrize("rc", ["flat", "pallas"])
+def test_one_process_serving_rc_backends_match_jax(variables, jax_logits, rc):
+    """The port's one-process deploy_forward with rc_backend 'flat' (B5's
+    plain version) or 'pallas' (B4's), float32, against JAX's
+    deploy_forward on the whole map: rtol 1e-4, atol 1e-5 (PERF.md's
+    serving row). The sharded runs are held to this one below."""
+    from lmnet_tpu_torch.models import structural_reparam
+
+    deploy = structural_reparam(_port_model(variables).state_dict())
+    with torch.no_grad():
+        got = deploy_forward(deploy, torch.from_numpy(_global_batch()[0]), TINY["num_heads"],
+                             "plain", rc)
+    np.testing.assert_allclose(got.numpy(), jax_logits, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("up", ["einsum", "flat"])
+@pytest.mark.parametrize("rc", ["flat", "pallas"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_serving_rc_backends_on_blocks_match_one_process(variables, ranks, mesh, rc, up,
+                                                         monkeypatch):
+    """deploy_forward with rc_backend 'flat' (B5: the halo of e, its sums
+    all-reduced) or 'pallas' (B4: the slab of x with no rows past the
+    global edges, phase 1's sums all-reduced between the phases), with the
+    'einsum' or the 'flat' upsample (B7 on each rank's slab, global
+    coordinates), float32, each rank's block of the global batch; the
+    blocks joined (on (2 x 2) every data rank serves the same blocks)
+    against the port's one-process deploy_forward with the same backends:
+    the same function, float32 sums in another order, elementwise within
+    1e-5 |ref| + 1e-5 max|ref|, as the deploy options on a shard.
+
+    Against JAX's logits directly (rtol 1e-4, atol 1e-5) the sharded
+    'flat' and 'pallas' come to 1.02x that bound at one logit of 6,144
+    (error 1.49e-5 against a largest logit of 12.06): the shard moves
+    every backend's logits by up to ~9e-6 from one process's (the 'xla'
+    ReparamConv too, which then sits at 0.64x), and the one-process 'flat'
+    already sits at 0.92x."""
+    from lmnet_tpu_torch.models import structural_reparam
+
+    monkeypatch.setattr(resize, "UPSAMPLE_BACKEND", up)
+    deploy = structural_reparam(_port_model(variables).state_dict())
+    with torch.no_grad():
+        want = deploy_forward(deploy, torch.from_numpy(_global_batch()[0]), TINY["num_heads"],
+                              "plain", rc)
+    for joined in _joined(ranks, mesh, (rc, up)):
+        _close(joined.numpy(), want.numpy(), 1e-5, 1e-5, f"{rc} + {up} upsample")
 
 
 def test_collectives_a_sharded_step(ranks):
@@ -302,7 +408,7 @@ def test_collectives_a_sharded_step(ranks):
 
 def test_evaluate_and_serving_on_two_blocks_match_one_process(variables, ranks):
     """evaluate (float32) and serving_evaluate (bf16, rc_backend 'auto',
-    which on a shard draws from 'xla' alone) with HD95 on the gathered
+    which draws from 'xla' and 'flat', on a shard too) with HD95 on the gathered
     maps, on (1 x 2), against one process: eval loss rtol 1e-5 and metrics
     to 1e-12, HD95 within 1e-9; served by PERF.md's bf16 serving rule."""
     state = create_train_state(_port_model(variables), (2, HW, HW, 3), device="cpu")
@@ -381,7 +487,12 @@ def test_cli_n_spatial_matches_one_process(ranks, launched, tmp_path):
     cli.main(_cli_argv(tmp_path) + ["--epochs", "2"])
     cli.main(_cli_argv(tmp_path) + ["--epochs", "2", "--test", "--hd95"])
     cli.main(_cli_argv(tmp_path) + ["--epochs", "2", "--test", "--serve"])
+    _cli_rows_match(d, tmp_path)
 
+
+def _cli_rows_match(d, tmp_path):
+    """The CSV rows the ranks wrote under ``d`` against one process's under
+    ``tmp_path``: within 5e-4, the served row within 2e-2."""
     def rows(p):
         with open(p, encoding="utf-8") as f:
             return [np.array(r, dtype=np.float64) for r in csv.reader(f) if r]
@@ -395,6 +506,20 @@ def test_cli_n_spatial_matches_one_process(ranks, launched, tmp_path):
                                             for p in (d, tmp_path))
     np.testing.assert_allclose(g_test, w_test, rtol=0, atol=5e-4)
     np.testing.assert_allclose(g_serve, w_serve, rtol=0, atol=2e-2)
+
+
+def test_cli_n_spatial_fused_flat_matches_one_process(ranks, launched, tmp_path, monkeypatch):
+    """The same CLI cycle with ``--rc_train_backend fused`` and the 'flat'
+    upsample (B6, B5 and B7 on each rank's slabs) writes the rows one
+    process writes with the same flags, by the same rules."""
+    d, _ = launched["1x2"]
+    assert ranks["1x2"][0]["cli_fused"]
+    monkeypatch.setattr(resize, "UPSAMPLE_BACKEND", "flat")
+    argv = _cli_argv(tmp_path) + ["--epochs", "2", "--rc_train_backend", "fused"]
+    cli.main(argv)
+    cli.main(argv + ["--test", "--hd95"])
+    cli.main(argv + ["--test", "--serve"])
+    _cli_rows_match(d / "fused", tmp_path)
 
 
 class _Mesh:
@@ -431,45 +556,6 @@ def test_shard_batch_cuts_rows_and_h(monkeypatch):
     np.testing.assert_array_equal(ys.numpy(), x[1:3, 16:, :, 0])
     xs, _ = pmesh.shard_batch(mesh, x, x[..., 0], spatial=False)
     np.testing.assert_array_equal(xs.numpy(), x[1:3])
-
-
-def _refusals():
-    """Each backend that does not run on a block of rows yet, as a call."""
-    from lmnet_tpu_torch.models import structural_reparam
-    from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
-    from lmnet_tpu_torch.ops.rc_train import rc_branch_act, rc_branch_stats
-    from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat
-
-    m = TLMNet(**TINY, generator=torch.Generator().manual_seed(0))
-    deploy = structural_reparam(m.state_dict())
-    x = torch.randn(1, 16, 32, 3)
-    e = torch.randn(1, 8, 8 * 4)
-    k = [torch.randn(4, 1, kh, kw) for kh, kw in ((5, 5), (3, 3), (3, 1), (1, 3))]
-    return {
-        "deploy rc flat (B5)": lambda: deploy_forward(deploy, x, 2, "plain", "flat"),
-        "deploy rc pallas (B4)": lambda: deploy_forward(deploy, x, 2, "plain", "pallas"),
-        "train rc fused (B5, B6)": lambda: rc_branch_act(e, *k, torch.ones(4, 4),
-                                                         torch.zeros(4, 4), 4),
-        "B5": lambda: dw_gelu_flat(e, k[0], torch.zeros(4), 4),
-        "B6": lambda: rc_branch_stats(e, *k, 4),
-        "B7": lambda: upsample2x_flat(x),
-    }
-
-
-@pytest.mark.parametrize("name", list(_refusals()))
-def test_backends_without_a_row_window_raise_naming_a8c(name):
-    """Inside a shard each of B4-B7's paths raises before any collective
-    (so no group is needed here), naming ROADMAP A8c; none gathers the
-    image or falls back. The flat upsample through the resize switch too."""
-    call = _refusals()[name]
-    with pbatch.shard(None, 1, 2), pytest.raises(NotImplementedError, match="A8c"):
-        call()
-
-
-def test_upsample_backend_flat_raises_on_a_shard(monkeypatch):
-    monkeypatch.setattr(resize, "UPSAMPLE_BACKEND", "flat")
-    with pbatch.shard(None, 0, 2), pytest.raises(NotImplementedError, match="A8c"):
-        resize.upsample2x_align_corners(torch.randn(1, 4, 4, 2))
 
 
 def test_batch_statistics_on_a_shard_need_a_global_batch():

@@ -180,6 +180,52 @@ def test_upsample_plan_refuses_what_the_kernel_does_not_take():
     assert upsample_plan(1, 70000, 4, 8, torch.bfloat16) is not None  # tiles of 16 rows
 
 
+# (B, h, W, C) a rank's row window gives B7: the four upsample input shapes
+# of chip_smoke.py phase 21 (B = 4, 16 .. 128 rows a rank) and small maps, the
+# generic variant's odd pixels among them
+UP_WINDOW = sorted({(cs.SPATIAL_BATCH, *s) for s in cs.SPATIAL_UP}
+                   | {(2, 4, 6, 4), (2, 8, 12, 8), (1, 2, 5, 3), (2, 16, 16, 192)})
+
+
+def _up_windows(h, size):
+    """(Hs, top, Hg, row0) of each rank's slab of a map of size x h rows: one
+    row of each neighbour, none past the global edges."""
+    Hg = size * h
+    return [(h + (r > 0) + (r < size - 1), int(r > 0), Hg, r * h) for r in range(size)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,h,W,C", UP_WINDOW)
+def test_upsample_plan_on_a_window_reads_inside_its_box_and_slab(dtype, B, h, W, C):
+    """On every rank's slab of 2 and of 4: the plan is the whole map's for
+    h rows but for the map's dims (C, W, B*Hs); its blocks cover the h rows
+    once; every slab row a block's outputs read (the global rows k-1, k,
+    k+1, clamped to the global map, at slab row top + k - row0) lies in
+    [0, Hs) and, for 'tma', inside the block's box of rows from slab row
+    top + r0 - 1."""
+    for size in (2, 4):
+        for Hs, top, Hg, row0 in _up_windows(h, size):
+            plan, whole = upsample_plan(B, h, W, C, dtype, Hs), upsample_plan(B, h, W, C, dtype)
+            assert {k: v for k, v in plan.items() if k != "map"} == \
+                {k: v for k, v in whole.items() if k != "map"}
+            th = plan["tile"][0]
+            assert plan["grid"][1] == -(-h // th)
+            if plan["variant"] == "tma":
+                assert plan["map"]["dims"] == (C, W, B * Hs)
+                box_rows = plan["copies"] * plan["box"][2]
+            for r0 in range(0, h, th):
+                reads = {top + min(max(row0 + k + d, 0), Hg - 1) - row0
+                         for k in range(r0, min(r0 + th, h)) for d in (-1, 0, 1)}
+                assert reads <= set(range(Hs)), (Hs, top, Hg, row0, r0)
+                if plan["variant"] == "tma":
+                    assert reads <= set(range(top + r0 - 1, top + r0 - 1 + box_rows))
+
+
+def test_upsample_plan_refuses_a_slab_shorter_than_its_rows():
+    assert upsample_plan(2, 8, 8, 8, torch.bfloat16, 7) is None
+    assert upsample_plan(2, 8, 8, 8, torch.bfloat16, 9)["map"]["dims"] == (8, 8, 18)
+
+
 # --------------------------------------------------------------------------
 # B3: b3_plan
 # --------------------------------------------------------------------------
@@ -386,6 +432,10 @@ def test_python_plans_are_the_kernels_plans(cuda, dtype):
 
     for shape in UP_SHAPES + [(1, 70000, 4, 3), (0, 4, 4, 8)]:
         assert upsample_flat.kernel_plan(*shape, dtype) == upsample_plan(*shape, dtype), shape
+    for B, h, W, C in UP_WINDOW:  # the row windows' slabs, and one too short
+        for Hs in sorted({w[0] for w in _up_windows(h, 4)} | {h - 1}):
+            assert upsample_flat.kernel_plan(B, h, W, C, dtype, Hs) == \
+                upsample_plan(B, h, W, C, dtype, Hs), (B, h, W, C, Hs)
     for shape in NAT_SHAPES + [(1, 9, 9, 1, 40000), (1, 2, 9, 12, 1), (1, 9, 13, 12, 1)]:
         want = b3_plan(*shape, dtype)
         assert nat_kernel.kernel_takes(*shape, dtype) == (want is not None), shape
