@@ -239,6 +239,26 @@ Phases, each printing a line, any failure raising (exit code != 0):
      sides, every draw's Dice, the gaps, wall seconds, launches), draw 0's
      losses every 6 epochs, one line a served backend. Every kernel's
      ``launches_by_path`` gains 'convergence' (B1-B7).
+ 23. JAX's multi-host mode (a node stands for a JAX process, with its own
+     data): two torchrun agents, ``--nnodes 2 --node_rank 0|1``, on the one
+     card, their ranks over gloo (``chip_smoke.py --mh-rank DIR LAYOUT``).
+     On 2 nodes x 1 rank: each node loads its own 8 of phase 20's 16
+     images and runs its step of the bf16 256^2 global batch of 16 ('flat'
+     NAT, 'fused' ReparamConv, rc_remat, dropout on; B1, B2, B5, B6 4, 4,
+     32, 32 a rank), held against phase 20's one-process step on the 16 by
+     the bf16 rule, the nodes' parameters bitwise equal; evaluate
+     (float32, cross-host) of each node's shard of phase 20's eval set (5
+     and 4 images) against one process over both shards (loss rel 1e-5,
+     accuracy moved on < 1e-4 of the pixels) and serving_evaluate (bf16,
+     B1) of the nodes' batches as global batches against one process on
+     the concatenated batches (the serving rule); ms a step a rank. On 2
+     nodes x 2 ranks: the float32 64^2 step on each node's 2 of phase 20's
+     4 images (1 row a rank) by phase 20's fp32 rule against its one
+     process; then the CLI (--apm --distributed True, --batch_size 4 a
+     node, 1 epoch at full width, 256^2) on the nodes' train and val
+     shards: rank 0's files, one finite 16-column row, B1 8 and B2 4 a
+     rank. B1's, B2's, B5's and B6's ``launches_by_path`` gain 'multihost'
+     (every rank of both runs summed).
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -2743,10 +2763,12 @@ def _ddp_model(dev, dtype):
 def _ddp_step(model, x, y, mesh=None, spatial=False):
     """One train_step (dropout on, the generator seeded alike everywhere):
     (loss, {name: grad}, state dict after the step, the step's confusion
-    matrix, summed over the ranks under a mesh), on the CPU. ``spatial``:
-    each rank's block of H too (the mesh's 'spatial' axis)."""
+    matrix, summed over the ranks under a mesh), on the CPU. Under a mesh
+    ``x`` is this rank's node's batch (on one node the global batch).
+    ``spatial``: each rank's block of H too (the mesh's 'spatial' axis)."""
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
-    from lmnet_tpu_torch.parallel.mesh import h_rows, replicate, shard_rows, sum_group
+    from lmnet_tpu_torch.parallel.dist_utils import host_count
+    from lmnet_tpu_torch.parallel.mesh import h_rows, node_rows, replicate, sum_group
     from lmnet_tpu_torch.train import create_train_state, train_step
 
     state = create_train_state(model, tuple(x.shape), seed=9, device=x.device)
@@ -2755,10 +2777,10 @@ def _ddp_step(model, x, y, mesh=None, spatial=False):
         state, loss, cm = train_step(state, x, y, cm)
     else:
         replicate(mesh, state)
-        rows = shard_rows(mesh, len(x))
+        rows = node_rows(mesh, len(x))
         hs = h_rows(mesh, x.shape[1]) if spatial else slice(None)
         state, loss, cm = train_step(state, x[rows][:, hs], y[rows][:, hs], cm, mesh=mesh,
-                                     global_rows=len(x), spatial=spatial)
+                                     global_rows=len(x) * host_count(), spatial=spatial)
         torch.distributed.all_reduce(cm, group=sum_group(mesh, spatial))
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     return (float(loss), grads, {k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -2822,9 +2844,11 @@ def ddp_rank_main(out_dir, device_type: str = "cuda") -> int:
     _sync(dev)
     got["launches"] = _read_counters()
 
-    # ms a step: 3 steps after a warm-up, CUDA events
+    # ms a step: 3 steps after a warm-up, CUDA events, once the runs beside
+    # this one have ended
     state = create_train_state(_ddp_model(dev, torch.bfloat16), (BATCH, IMG, IMG, 3), seed=0,
                                device=dev)
+    _wait_quiet(out_dir)
     rows = shard_rows(mesh, BATCH)
     cm = ConfusionAccumulator.init(2, dev)
     times = [_steps_ms(lambda: train_step(state, x[rows], y[rows], cm, mesh=mesh,
@@ -2853,18 +2877,37 @@ def cli_rank_main(argv) -> int:
     return 0
 
 
-def _torchrun(nproc: int, args, timeout: int = 600, phase: int = 20) -> str:
+def _torchrun_start(nproc: int, args, rendezvous=("--standalone",)) -> subprocess.Popen:
     """``python -m torch.distributed.run --standalone --nproc_per_node
-    nproc chip_smoke.py args``; its output, each line printed; raises if it
-    fails."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+    nproc chip_smoke.py args`` (or another ``rendezvous``), started."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", *rendezvous,
            "--nproc_per_node", str(nproc), __file__, *args]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    for line in proc.stdout.splitlines():
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _torchrun_end(proc, args, timeout: int = 600, phase: int = 20) -> str:
+    """The output of ``_torchrun_start``'s run, each line printed; raises if
+    it fails."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        stop_process(proc)
+    for line in out.splitlines():
         print(f"phase {phase}: torchrun| {line}")
     check(proc.returncode == 0, f"torchrun {' '.join(args[:1])} exited {proc.returncode}: "
-                                f"{proc.stderr[-3000:]}")
-    return proc.stdout
+                                f"{err[-3000:]}")
+    return out
+
+
+def _wait_quiet(out_dir, timeout: float = 300.0) -> None:
+    """Wait for the parent's ``quiet`` file in ``out_dir``: every other run
+    it started beside this one has ended, so the card and host are this
+    run's to time."""
+    from pathlib import Path
+
+    deadline = time.time() + timeout
+    while not (Path(out_dir) / "quiet").exists() and time.time() < deadline:
+        time.sleep(0.2)
 
 
 def _bf16_rule(label, got, one, ref, phase: int = 20) -> float:
@@ -2991,13 +3034,36 @@ def phase_ddp(dev, card_line) -> dict:
                      "--ckpt_dir", str(tmp / name / "ckpt"), "--out_dir", str(tmp / name / "out"),
                      "--device", dev.type] + (["--apm"] if apm else []))
 
+        # (c)'s one process is timed first; then (b) and (c)'s two ranks
+        # start together (each is mostly its processes' start), and the
+        # ranks time their steps once (b) and this process are done
+        from lmnet_tpu_torch.metrics import ConfusionAccumulator
+        from lmnet_tpu_torch.train import create_train_state, train_step
+
+        x, y = _batch(BATCH, IMG, "val", 4, dev)
+        state = create_train_state(_ddp_model(dev, torch.bfloat16), (BATCH, IMG, IMG, 3), seed=0,
+                                   device=dev)
+        cm = ConfusionAccumulator.init(2, dev)
+        one_ms = [_steps_ms(lambda: train_step(state, x, y, cm), 3, dev)]
+        del state
         t0 = time.perf_counter()
-        said = _torchrun(1, ["--cli-rank", *argv("nccl"), "--distributed", "True"])
-        t_nccl = time.perf_counter() - t0
+        nccl_args = ["--cli-rank", *argv("nccl"), "--distributed", "True"]
+        nccl, gloo = _torchrun_start(1, nccl_args), _torchrun_start(2, ["--ddp-rank", str(tmp),
+                                                                        dev.type])
+        try:
+            for name, apm in (("one", True), ("fp32", False)):
+                run_cli(argv(name, apm), phase=20)
+            said = _torchrun_end(nccl, nccl_args)
+            t_nccl = time.perf_counter() - t0
+            (tmp / "quiet").touch()
+            _torchrun_end(gloo, ["--ddp-rank"])
+            t_gloo = time.perf_counter() - t0
+        finally:
+            for p in (nccl, gloo):
+                stop_process(p)
         cli_launch = json.loads(next(line for line in said.splitlines()
                                      if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
-        for name, apm in (("one", True), ("fp32", False)):
-            run_cli(argv(name, apm), phase=20)
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
         rows = {n: [[float(v) for v in r]
                     for r in _csv_rows(tmp / n / "out" / "LM_NetKvasir_0.csv")]
                 for n in ("nccl", "one", "fp32")}
@@ -3015,28 +3081,15 @@ def phase_ddp(dev, card_line) -> dict:
         metric_ok = bool(np.all(np.abs(np.delete(d - o, [0, 8])) <= 0.02))
         ok = ok and loss_ok and metric_ok
         print(f"phase 20: (b) torchrun --nproc_per_node 1 cli --distributed True (NCCL) "
-              f"{t_nccl:.1f}s: files {files}, checkpoints {ckpts}, B1 {cli_launch['nat_fwd']} "
+              f"ended {t_nccl:.1f}s after its start: files {files}, checkpoints {ckpts}, "
+              f"B1 {cli_launch['nat_fwd']} "
               f"B2 {cli_launch['nat_bwd']} launches (want 8, 4); CSV row {d.tolist()} against "
               f"one process {o.tolist()} and fp32 {f.tolist()}: losses by the bf16 rule "
               f"{loss_ok}, metrics within 0.02 {metric_ok} {'ok' if ok else 'FAIL'}")
         check(ok, "the NCCL --distributed CLI run disagrees with one process")
 
-        # (c) two ranks on the one card over gloo: the 2-rank steps, evaluate
-        # and serving_evaluate against one process on the same inputs
-        from lmnet_tpu_torch.metrics import ConfusionAccumulator
-        from lmnet_tpu_torch.train import create_train_state, train_step
-
-        x, y = _batch(BATCH, IMG, "val", 4, dev)
-        state = create_train_state(_ddp_model(dev, torch.bfloat16), (BATCH, IMG, IMG, 3), seed=0,
-                               device=dev)
-        cm = ConfusionAccumulator.init(2, dev)
-
-        one_ms = [_steps_ms(lambda: train_step(state, x, y, cm), 3, dev)]
-        t0 = time.perf_counter()
-        _torchrun(2, ["--ddp-rank", str(tmp), dev.type])
-        t_gloo = time.perf_counter() - t0
-        del state
-        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    # (c) two ranks on the one card over gloo: the 2-rank steps, evaluate and
+    # serving_evaluate against one process on the same inputs
 
     check([r["backend"] for r in ranks] == ["gloo", "gloo"]
           and [r["world"] for r in ranks] == [2, 2], "the ranks are not a gloo group of two")
@@ -3058,9 +3111,10 @@ def phase_ddp(dev, card_line) -> dict:
     def stats_only(step):
         return step[0], step[1], {k: v for k, v in step[2].items() if "running" in k}, step[3]
 
+    refs = {"bf16": stats_only(one_bf16), "fp32": stats_only(fp32), "two_ranks": got,
+            "one_ms": one_ms}
     b16 = _bf16_rule(f"(c) bf16 {IMG}^2 B={BATCH} step, 2 ranks x {BATCH // 2} against one "
-                     "process",
-                     stats_only(got), stats_only(one_bf16), stats_only(fp32))
+                     "process", stats_only(got), refs["bf16"], refs["fp32"])
     del one_bf16, fp32
     same = all(torch.equal(ranks[0][k][2][n], ranks[1][k][2][n])
                for k in ("bf16", "fp32") for n in ranks[0][k][2])
@@ -3071,7 +3125,7 @@ def phase_ddp(dev, card_line) -> dict:
     # fp32 64^2, B=4 (2 a rank): loss rel 1e-5, each gradient ||d|| <= 1e-3
     # ||ref|| + 1e-5 max||g||, running statistics rtol 1e-4 / atol 1e-5 max
     x32, y32 = _batch(4, 64, "val", 3, dev)
-    lo, go, so, co = _ddp_step(_ddp_model(dev, torch.float32), x32, y32)
+    lo, go, so, co = refs["fp32_64"] = _ddp_step(_ddp_model(dev, torch.float32), x32, y32)
     lg, gg, sg, cg = ranks[0]["fp32"]
     big = max(v.norm().item() for v in go.values())
     worst_g = max((gg[k] - go[k]).norm().item() / (1e-3 * go[k].norm().item() + 1e-5 * big)
@@ -3120,7 +3174,8 @@ def phase_ddp(dev, card_line) -> dict:
           f"the NCCL CLI run {json.dumps({k: cli_launch[k] for k in DDP_KERNELS})}; "
           f"phase 20 {time.perf_counter() - t_phase:.1f}s")
     return {"ddp": launches, "ddp_cli": {k: cli_launch[k] for k in DDP_KERNELS},
-            "one_ms": one_ms, "two_ms": two_ms, "collectives": coll, "bf16_worst": b16}
+            "one_ms": one_ms, "two_ms": two_ms, "collectives": coll, "bf16_worst": b16,
+            "refs": refs}
 
 
 # phase 21: the mesh's 'spatial' axis (lmnet_tpu_torch/parallel/spatial.py)
@@ -3256,9 +3311,11 @@ def spatial_rank_main(out_dir, device_type: str = "cuda") -> int:
     got["fused_launches"] = _read_counters()
     got["serves"] = _spatial_serves(dev, mesh)
 
-    # ms a step: 3 steps after a warm-up, CUDA events
+    # ms a step: 3 steps after a warm-up, CUDA events, once the dry run
+    # beside this one has ended
     state = create_train_state(_spatial_model(dev, torch.bfloat16),
                                (SPATIAL_BATCH, SPATIAL_IMG, SPATIAL_IMG, 3), seed=0, device=dev)
+    _wait_quiet(out_dir)
     hs = h_rows(mesh, SPATIAL_IMG)
     xs, ys = x[:, hs].contiguous(), y[:, hs].contiguous()
     cm = ConfusionAccumulator.init(2, dev)
@@ -3317,7 +3374,7 @@ def _spatial_slab_kernels(dev, card_line) -> dict:
     return out
 
 
-def _fp32_rule(label, got, one) -> None:
+def _fp32_rule(label, got, one, phase: int = 21, who: str = "2 ranks x 32 rows") -> None:
     """A float32 2-rank step ``got`` against the one-process step ``one``
     (loss, gradients, state, confusion matrix): loss rel 1e-5, each gradient
     ||d|| <= 1e-3 ||ref|| + 1e-5 max||g||, running statistics rtol 1e-4 /
@@ -3332,11 +3389,11 @@ def _fp32_rule(label, got, one) -> None:
                   for k in so if "running" in k)
     ok = (abs(lg - lo) <= 1e-5 * abs(lo) and worst_g <= 1.0 and worst_s <= 1.0
           and torch.equal(cg, co))
-    print(f"phase 21: {label}, 2 ranks x 32 rows against one process: loss {lg:.7f} vs "
+    print(f"phase {phase}: {label}, {who} against one process: loss {lg:.7f} vs "
           f"{lo:.7f} (tol rel 1e-5); {len(go)} gradients worst ||2r-1p|| / (1e-3 ||1p|| + "
           f"1e-5 max||g||) = {worst_g:.3e}; running statistics worst {worst_s:.3e} (tol 1); "
           f"confusion matrix equal {torch.equal(cg, co)} {'ok' if ok else 'FAIL'}")
-    check(ok, f"the {label} on 2 ranks disagrees with one process")
+    check(ok, f"the {label} on {who} disagrees with one process")
 
 
 def _serving_rule(label, got, one) -> None:
@@ -3534,12 +3591,21 @@ def phase_spatial(dev, card_line) -> dict:
     one_ms = [_steps_ms(lambda: train_step(state, x, y, cm), 3, dev)]
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
+    del state
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_", dir=build) as tmp:
+        # the dry run beside the two ranks (each is mostly its processes'
+        # start); the ranks time their steps once it has ended
         t0 = time.perf_counter()
-        _torchrun(2, ["--spatial-rank", tmp, dev.type], phase=21)
+        args = ["--spatial-rank", tmp, dev.type]
+        proc = _torchrun_start(2, args)
+        try:
+            dry = dryrun_multichip(4, device=dev.type)
+            (Path(tmp) / "quiet").touch()
+            _torchrun_end(proc, args, phase=21)
+        finally:
+            stop_process(proc)
         t_ranks = time.perf_counter() - t0
         ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
-    del state
 
     check([r["backend"] for r in ranks] == ["gloo", "gloo"]
           and [r["mesh"] for r in ranks] == [(1, 2), (1, 2)],
@@ -3645,7 +3711,6 @@ def phase_spatial(dev, card_line) -> dict:
     check(all(v > 0 for v in window_launches.values()),
           f"a row-window kernel never launched on the spatial path: {window_launches}")
 
-    dry = dryrun_multichip(4, device=dev.type)
     coll = ranks[0]["collectives"]
     two_ms = [r["ms"] for r in ranks]
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ("nat_fwd", "nat_bwd")}
@@ -3655,8 +3720,8 @@ def phase_spatial(dev, card_line) -> dict:
           f"step (one turn each rank; every exchange and all-reduce goes through the host) "
           f"[{card_line}]; a step's collectives: {coll['halo']} halo exchanges, "
           f"{coll['forward']} all-reduces in forwards, {coll['backward']} in backwards, "
-          f"{coll['grads']} of the gradients; torchrun 2 ranks {t_ranks:.1f}s; dry run "
-          f"{dry['mesh'][0]}x{dry['mesh'][1]} {dry['seconds']:.1f}s")
+          f"{coll['grads']} of the gradients; torchrun 2 ranks {t_ranks:.1f}s, the dry run "
+          f"{dry['mesh'][0]}x{dry['mesh'][1]} beside them {dry['seconds']:.1f}s")
     print(f"phase 21: the 'fused' + flat upsample bf16 step's collectives: "
           f"{fused_coll['halo']} halo exchanges, {fused_coll['forward']} all-reduces in "
           f"forwards, {fused_coll['backward']} in backwards, {fused_coll['grads']} of the "
@@ -3836,6 +3901,264 @@ def phase_convergence(dev, card_line) -> dict:
     return {"launches": launches, "records": records}
 
 
+# phase 23: JAX's multi-host mode, a node standing for a JAX process; two
+# simulated nodes on the one card, each started by a torchrun agent of its
+# own (--nnodes 2), their ranks over gloo
+MH_LAYOUTS = {"2x1": 1, "2x2": 2}  # ranks a node
+MH_CLI_BATCH = 4  # a node's --batch_size: the synthetic train shard of 4 gives 1 step
+
+
+def _node_batch(n, img, seed, dev, node):
+    """Node ``node``'s half of ``_batch(n, img, 'val', seed, dev)``: the
+    node's own n / 2 images, its batch of a global batch of n."""
+    import itertools
+
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+    from lmnet_tpu_torch.data.augment import eval_pipeline
+
+    loader = make_loader(SyntheticDataset(n, img, "val", seed=seed), n // 2, num_threads=1)
+    images, masks = next(itertools.islice(loader, node, None))
+    return eval_pipeline(torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev), img)
+
+
+def _mh_eval_loader(node):
+    """Node ``node``'s shard of phase 20's eval set (5 and 4 images), in
+    batches of 4."""
+    from lmnet_tpu_torch.data import SyntheticDataset, make_loader
+
+    return make_loader(SyntheticDataset(DDP_EVAL_IMAGES, IMG, "val", seed=12).shard(node, 2), 4)
+
+
+def _mh_evals(dev, mesh=None):
+    """evaluate at float32 (cross-host) and serving_evaluate (bf16, B1) of
+    phase 20's seeded float32 model: on a mesh of two nodes each node over
+    its own shard; in one process evaluate over both shards in node order
+    and serving_evaluate over the nodes' batches i concatenated (8 rows,
+    then node 0's tail of 1)."""
+    import itertools
+
+    from lmnet_tpu_torch.parallel.dist_utils import host_index
+    from lmnet_tpu_torch.serve import serving_evaluate
+    from lmnet_tpu_torch.train import create_train_state, evaluate
+
+    state = create_train_state(_ddp_model(dev, torch.float32), (4, IMG, IMG, 3), seed=0,
+                               device=dev)
+    sd = state.model.state_dict()
+    if mesh is not None:
+        node = host_index()
+        return (evaluate(state, _mh_eval_loader(node), img_size=IMG, mesh=mesh, cross_host=True),
+                serving_evaluate(sd, _mh_eval_loader(node), 2, IMG, device=dev, mesh=mesh))
+    nodes = [list(_mh_eval_loader(k)) for k in range(2)]
+    batches = [tuple(np.concatenate([b[i] for b in bs if b is not None]) for i in range(2))
+               for bs in itertools.zip_longest(*nodes)]
+    return (evaluate(state, itertools.chain(*nodes), img_size=IMG),
+            serving_evaluate(sd, batches, 2, IMG, device=dev))
+
+
+def mh_rank_main(out_dir, layout: str, device_type: str, t0: str) -> int:
+    """One rank of phase 23, started by one of two torchrun agents (a node
+    each) at ``t0`` (seconds since the epoch): on 2 nodes x 1 rank the bf16
+    256^2 step on its node's 8 rows of phase 20's 16, the cross-host
+    evaluate and serving_evaluate of its node's eval shard, then, once the
+    runs beside it have ended (``_wait_quiet``), 3 timed steps; on 2 nodes
+    x 2 ranks the float32 64^2 step on its node's 2 rows of phase 20's 4,
+    then the CLI on its node's train and val shards. Saves what it got,
+    its kernel launches and its seconds a part to ``out_dir/rank{r}.pt``."""
+    from pathlib import Path
+
+    from lmnet_tpu_torch.cli import train as cli
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.parallel import dist_utils
+    from lmnet_tpu_torch.parallel.mesh import make_mesh, node_rows
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    seconds, last = {"start": time.time() - float(t0)}, [time.perf_counter()]
+
+    def lap(name):
+        _sync(dev)
+        seconds[name] = time.perf_counter() - last[0]
+        last[0] = time.perf_counter()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_utils.init_distributed_mode(device_type, backend="gloo")
+    rank, node = dist_utils.get_rank(), dist_utils.host_index()
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device("cpu"))
+    mesh = make_mesh(device_type=device_type)
+    got = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "hosts": (node, dist_utils.host_count(), dist_utils.local_world_size())}
+    lap("init")
+    _zero_counters()
+    if layout == "2x1":
+        x, y = _node_batch(BATCH, IMG, 4, dev, node)
+        got["bf16"] = _ddp_step(_ddp_model(dev, torch.bfloat16), x, y, mesh)
+        _sync(dev)
+        got["step_launches"] = _read_counters()
+        lap("step")
+        got["evals"] = _mh_evals(dev, mesh)
+        lap("evals")
+        state = create_train_state(_ddp_model(dev, torch.bfloat16), tuple(x.shape), seed=0,
+                                   device=dev)
+        rows, cm = node_rows(mesh, len(x)), ConfusionAccumulator.init(2, dev)
+        _wait_quiet(out_dir)
+        lap("wait")
+        got["ms"] = _steps_ms(lambda: train_step(state, x[rows], y[rows], cm, mesh=mesh,
+                                                 global_rows=BATCH), 3, dev)
+        lap("timed")
+    else:
+        x32, y32 = _node_batch(4, 64, 3, dev, node)
+        got["fp32"] = _ddp_step(_ddp_model(dev, torch.float32), x32, y32, mesh)
+        lap("step")
+        before = _read_counters()
+        root = Path(out_dir) / "cli"
+        cli.main(["--synthetic", "--k_fold", "False", "--img_size", str(IMG), "--batch_size",
+                  str(MH_CLI_BATCH), "--epochs", "1", "--seed", "0", "--apm", "--distributed",
+                  "True", "--ckpt_dir", str(root / "ckpt"), "--out_dir", str(root / "out"),
+                  "--device", device_type])
+        _sync(dev)
+        got["cli_launches"] = {k: v - before[k] for k, v in _read_counters().items()}
+        lap("cli")
+    got["launches"] = _read_counters()
+    got["seconds"] = seconds
+    print(f"phase 23: rank {rank} (node {node})| launches {json.dumps(got['launches'])}; "
+          f"seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}", flush=True)
+    torch.save(got, Path(out_dir) / f"rank{rank}.pt")
+    dist_utils.cleanup()
+    return 0
+
+
+def _start_two_nodes(local: int, args) -> list:
+    """Two torchrun agents, node ranks 0 and 1 of ``--nnodes 2`` with
+    ``local`` ranks each (static rendezvous on 127.0.0.1), running
+    ``chip_smoke.py args``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return [_torchrun_start(local, args, ("--nnodes", "2", "--node_rank", str(k), "--master_addr",
+                                          "127.0.0.1", "--master_port", str(port)))
+            for k in range(2)]
+
+
+def phase_multihost(dev, card_line, refs) -> dict:
+    """Phase 23: JAX's multi-host mode, each node a JAX process with its own
+    data. ``refs``: phase 20's one-process steps on the 16 and 4 images the
+    nodes' batches concatenate to. Returns the kernel launches summed over
+    the ranks of both runs."""
+    import tempfile
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_", dir=build) as tmp:
+        tmp = Path(tmp)
+        # both runs at once (each is mostly its processes' start); the 2 x 1
+        # ranks time their steps once the 2 x 2 run has ended
+        procs, args = {}, {}
+        for layout, local in MH_LAYOUTS.items():
+            (tmp / layout).mkdir()
+            args[layout] = ["--mh-rank", str(tmp / layout), layout, dev.type, repr(time.time())]
+            procs[layout] = _start_two_nodes(local, args[layout])
+        runs, seconds = {}, {}
+        try:
+            for layout in ("2x2", "2x1"):
+                for p in procs[layout]:
+                    _torchrun_end(p, args[layout], timeout=300, phase=23)
+                if layout == "2x2":
+                    (tmp / "2x1" / "quiet").touch()
+                seconds[layout] = time.perf_counter() - t_phase
+                runs[layout] = [torch.load(tmp / layout / f"rank{r}.pt", weights_only=False)
+                                for r in range(2 * MH_LAYOUTS[layout])]
+        finally:
+            for p in procs["2x1"] + procs["2x2"]:
+                stop_process(p)
+        cli_root = tmp / "2x2" / "cli"
+        files = sorted(p.name for p in (cli_root / "out").iterdir())
+        ckpts = sorted(p.name for p in (cli_root / "ckpt").iterdir())
+        rows = _csv_rows(cli_root / "out" / "LM_NetKvasir_0.csv")
+
+    for layout, local in MH_LAYOUTS.items():
+        for r in runs[layout]:
+            check(r["backend"] == "gloo" and r["hosts"] == (r["rank"] // local, 2, local),
+                  f"phase 23: rank {r['rank']} of {layout} is on node {r['hosts']}")
+
+    # (a) 2 nodes x 1 rank: the bf16 step on each node's own 8 rows
+    two = runs["2x1"]
+    for r in two:
+        check({k: r["step_launches"][k] for k in DDP_KERNELS}
+              == {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32},
+              f"phase 23: rank {r['rank']}'s bf16 step launched {r['step_launches']}")
+    got = two[0]["bf16"]
+    stats = (got[0], got[1], {k: v for k, v in got[2].items() if "running" in k}, got[3])
+    b16 = _bf16_rule(f"(a) bf16 {IMG}^2 step on 2 nodes x {BATCH // 2} rows (a global batch of "
+                     f"{BATCH}) against one process on the concatenation", stats, refs["bf16"],
+                     refs["fp32"], phase=23)
+    same = all(torch.equal(got[2][n], two[1]["bf16"][2][n]) for n in got[2])
+    phase20 = refs["two_ranks"]
+    like20 = (got[0] == phase20[0] and all(torch.equal(got[1][n], phase20[1][n]) for n in got[1]))
+    print(f"phase 23: (a) both nodes' parameters and running statistics bitwise equal after the "
+          f"step: {same}; loss and gradients bitwise phase 20's 2 ranks on one node: {like20} "
+          f"{'ok' if same else 'FAIL'}")
+    check(same, "phase 23: the nodes' parameters differ after the step")
+
+    # (b) cross-host evaluate and serving_evaluate of each node's shard
+    (el, em), (sl, sm) = _mh_evals(dev)
+    (gel, gem), (gsl, gsm) = two[0]["evals"]
+    pixels = DDP_EVAL_IMAGES * IMG * IMG
+    ev_flips = abs(gem["accuracy"] - em["accuracy"]) * pixels
+    sv_flips = abs(gsm["accuracy"] - sm["accuracy"]) * pixels
+    ok = (two[0]["evals"] == two[1]["evals"] and abs(gel - el) <= 1e-5 * abs(el)
+          and ev_flips <= 1e-4 * pixels and abs(gsl - sl) <= 0.02 * abs(sl)
+          and sv_flips <= 0.025 * pixels and all(abs(gsm[k] - sm[k]) <= 0.02 for k in sm))
+    print(f"phase 23: (b) cross-host evaluate fp32 of the nodes' shards (5 and 4 images, "
+          f"batches of 4): loss {gel:.6f} vs one process over both {el:.6f} (tol rel 1e-5), "
+          f"accuracy moved by {ev_flips:.0f} pixels (tol 1e-4 of {pixels}); serving_evaluate "
+          f"bf16 of the nodes' batches as global batches: loss {gsl:.6f} vs {sl:.6f} (tol 2 %), "
+          f"{sv_flips:.0f} pixels (tol 2.5 %) {'ok' if ok else 'FAIL'}")
+    check(ok, "phase 23: the two nodes' evaluate or serving_evaluate disagrees with one process")
+
+    # (c) 2 nodes x 2 ranks: the float32 64^2 step, 1 row a rank
+    four = runs["2x2"]
+    _fp32_rule("(c) fp32 64^2 step", four[0]["fp32"], refs["fp32_64"], phase=23,
+               who="2 nodes x 2 ranks x 1 row")
+    same = all(torch.equal(four[0]["fp32"][2][n], r["fp32"][2][n])
+               for r in four[1:] for n in four[0]["fp32"][2])
+    check(same, "phase 23: the four ranks' parameters differ after the fp32 step")
+
+    # (d) the CLI on 2 nodes x 2 ranks: a global batch of 8, each node its shard
+    ok = (files == ["LM_NetKvasir_0.csv", "LM_NetKvasirbestresult_0.csv"]
+          and ckpts == ["LM_NetKvasir_0_checkpoint", "LM_NetKvasirbest_0"]
+          and len(rows) == 1 and len(rows[0]) == 16
+          and all(np.isfinite(float(v)) for v in rows[0])
+          and all(r["cli_launches"]["nat_fwd"] == 8 and r["cli_launches"]["nat_bwd"] == 4
+                  for r in four))
+    print(f"phase 23: (d) cli --apm --distributed True on 2 nodes x 2 ranks (--batch_size "
+          f"{MH_CLI_BATCH} a node, 2 rows a rank; train shards of 4, val shards of 2): files "
+          f"{files}, checkpoints {ckpts}, rank 0's row {rows}; B1/B2 launches a rank "
+          f"{[(r['cli_launches']['nat_fwd'], r['cli_launches']['nat_bwd']) for r in four]} "
+          f"(want 8, 4) {'ok' if ok else 'FAIL'}")
+    check(ok, "phase 23: the two-node CLI run broke its file contract or its launches")
+
+    launches = {k: sum(r["launches"][k] for r in two + four) for k in DDP_KERNELS}
+    check(all(r["launches"][k] > 0 for r in two for k in DDP_KERNELS)
+          and all(r["launches"][k] > 0 for r in four for k in ("nat_fwd", "nat_bwd")),
+          "phase 23: a rank did not launch every kernel of its path")
+    ms = [r["ms"] for r in two]
+    parts = [{k: round(v, 1) for k, v in r["seconds"].items()} for r in two + four]
+    print(f"phase 23: train_step bf16 {IMG}^2, global batch {BATCH} on 2 nodes x 1 rank "
+          f"sharing one card over gloo: {ms} ms a step a rank (gloo copies every all-reduce "
+          f"through the host: not NCCL's time; phase 20's one process "
+          f"{refs['one_ms']} ms) [{card_line}]; the two-node runs, started together, ended "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})} s into the phase; "
+          f"each rank's seconds a part {json.dumps(parts)}; "
+          f"kernel launches "
+          f"{json.dumps(launches)}; phase 23 {time.perf_counter() - t_phase:.1f}s")
+    return {"launches": launches, "ms": ms, "bf16_worst": b16}
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in an Itanium-mangled entry (a length-prefixed
     identifier ending in ``_kernel`` or starting ``reduce_``), with its
@@ -3981,6 +4304,7 @@ def main() -> int:
     ddp = timed(20, phase_ddp, dev, card_line)
     spatial = timed(21, phase_spatial, dev, card_line)
     convergence = timed(22, phase_convergence, dev, card_line)["launches"]
+    multihost = timed(23, phase_multihost, dev, card_line, ddp.pop("refs"))["launches"]
     new_paths = {
         "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
                     "rc_remat_branches": options["launches"]["branches fused"]["nat_fwd"],
@@ -4001,6 +4325,8 @@ def main() -> int:
     for k in ("nat_fwd", "nat_bwd", *RC_KERNELS, "upsample_flat"):  # phase 22
         new_paths[k]["convergence"] = convergence[k]
     b3_launches["convergence"] = convergence["nat_kernel"]
+    for k in DDP_KERNELS:  # phase 23: every rank of both two-node runs
+        new_paths[k]["multihost"] = multihost[k]
     cli_f = (cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
              + sum(new_paths["nat_fwd"].values()))
     cli_b = (cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
@@ -4081,13 +4407,15 @@ def main() -> int:
 if __name__ == "__main__":
     # phase 20's and 21's children, started by torchrun: a rank of the 2-rank
     # run, the CLI under --distributed, or a rank of the sharded run; phase
-    # 22's, one draw of a convergence arm
+    # 22's, one draw of a convergence arm; phase 23's, a rank of a node
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--spatial-rank"]:
         sys.exit(spatial_rank_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--mh-rank"]:
+        sys.exit(mh_rank_main(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--convergence-draw"]:
         sys.exit(convergence_draw_main(*sys.argv[2:6]))
     sys.exit(main())

@@ -26,21 +26,33 @@ iou, mean_iou) to ``{model}{dataset}_{fold}.csv``; the best row to
 ``train/checkpoint.py``.
 
 ``--distributed True`` trains data-parallel over the ranks of a process
-group: ``torchrun --nproc_per_node N -m lmnet_tpu_torch.cli.train
+group: ``torchrun --nnodes N --nproc_per_node L -m lmnet_tpu_torch.cli.train
 --distributed True ...`` (NCCL, one card a rank; gloo with ``--device
-cpu``; without a launcher, one process and no mesh). Every rank reads the
-whole data set and builds the same global batches of ``--batch_size``
-rows, takes its own rows of each (``parallel/mesh.py``), and computes the
-loss and the BatchNorm statistics over the global batch, so N ranks train
-as one process does; rank 0 alone writes the CSVs, checkpoints, figures and
-artifacts. ``--n_spatial S`` puts S of the N ranks on the mesh's 'spatial'
-axis: each image's H is split over them (halo exchanges between the
-ranks, ``parallel/spatial.py``) where ``--img_size`` divides by 16 S, else
-they run whole images; 0, the default, is JAX's 'auto': 2 at
-``--img_size`` >= 512 on an even world size, else 1. S must divide N, and
-``--batch_size`` the N / S ranks of the data axis. The reference's inert
-flags (``--mixup``, ``--deep_supervision``, ``--smoothing``) stay inert, as in JAX;
-``--syncBN`` too: the statistics are the global batch's under
+cpu``; without a launcher, one process and no mesh). A node stands for one
+JAX process and its L ranks for that process's devices, as JAX's
+multi-host mode has it: each node reads its own shard of the train, val
+and test manifests (every N-th row from its index, ``.shard``), builds
+batches of ``--batch_size`` rows from it, and the global batch of a step
+is the N nodes' batches in node order, N x ``--batch_size`` rows. The
+ranks of a node all read its batches and take their rows of each
+(``parallel/mesh.py::node_rows``); the loss and the BatchNorm statistics
+are the global batch's. Every node takes the smallest node's number of
+steps an epoch, which also sets the learning-rate schedule. Eval on
+several nodes is JAX's cross-host eval: each node evaluates its val (or
+test) shard and the totals are summed over the nodes; ``--test --serve``
+serves the nodes' batches as global batches, as JAX's does. On one node
+the node's batches are the global batches, so L ranks train as one
+process does. Rank 0 alone writes the CSVs, checkpoints, figures and
+artifacts (``--visualization`` renders the whole test set); every rank
+restores the checkpoints. ``--n_spatial S`` puts S of a node's L ranks on
+the mesh's 'spatial' axis: each image's H is split over them (halo
+exchanges between the ranks, ``parallel/spatial.py``) where
+``--img_size`` divides by 16 S, else they run whole images; 0, the
+default, is JAX's 'auto': 2 at ``--img_size`` >= 512 where L is even, else
+1. S must divide L (and so the world size), and ``--batch_size`` must split
+over the L / S data ranks of a node. The reference's inert flags
+(``--mixup``, ``--deep_supervision``, ``--smoothing``) stay inert, as in
+JAX; ``--syncBN`` too: the statistics are the global batch's under
 ``--distributed`` whatever it says.
 """
 
@@ -179,13 +191,19 @@ def build_parser() -> argparse.ArgumentParser:
 _NAT_BACKENDS = {"": "flat", "flat": "flat", "pallas": "pallas", "xla": "plain", "auto": "auto"}
 
 
-def resolve_n_spatial(args, world: int) -> int:
-    """``--n_spatial`` for a world of ``world`` ranks: 0 is JAX's 'auto' (2
-    at ``--img_size`` >= 512 on an even world size, else 1); SystemExit
-    unless it divides the world size."""
-    n = args.n_spatial or (2 if args.img_size >= 512 and world % 2 == 0 else 1)
+def resolve_n_spatial(args, world: int, local: int | None = None) -> int:
+    """``--n_spatial`` for a world of ``world`` ranks, ``local`` of them on a
+    node (default: one node): 0 is JAX's 'auto' (2 at ``--img_size`` >= 512
+    where a node's ranks are even, else 1); SystemExit unless it divides
+    the world size and the ranks of a node (an image's blocks share a
+    node)."""
+    local = world if local is None else local
+    n = args.n_spatial or (2 if args.img_size >= 512 and local % 2 == 0 else 1)
     if n < 1 or world % n:
         raise SystemExit(f"--n_spatial {n} must divide the world size {world}")
+    if local % n:
+        raise SystemExit(f"--n_spatial {n} must divide the {local} ranks of a node: the ranks "
+                         "of an image's blocks must share a node")
     return n
 
 
@@ -196,20 +214,35 @@ def _manifest(args, split: str, fold: int) -> str:
     return os.path.join(args.manifest_dir, f"{split}_{name}_{fold}.csv")
 
 
-def _datasets(args, fold: int):
+def _datasets(args, fold: int, host: int = 0, hosts: int = 1):
+    """The train, val and test sets; on ``hosts`` > 1 nodes, node ``host``'s
+    shard of each (JAX's per-process manifest shards)."""
     from lmnet_tpu_torch.data.datasets import SegmentationDataset, SyntheticDataset
 
     if args.synthetic:
         def mk(mode, n):
             return SyntheticDataset(n, args.img_size, mode, seed=args.seed)
 
-        return mk("train", 8), mk("val", 4), mk("val", 4)
-    kw = dict(img_size=args.img_size, root=args.data_root)
-    train = SegmentationDataset.from_csv(_manifest(args, "train", fold), "train", **kw)
-    val = SegmentationDataset.from_csv(_manifest(args, "val", fold), "val", **kw)
-    test_csv = _manifest(args, "test", fold)
-    test = SegmentationDataset.from_csv(test_csv, "val", **kw) if os.path.exists(test_csv) else val
-    return train, val, test
+        train, val, test = mk("train", 8), mk("val", 4), mk("val", 4)
+    else:
+        kw = dict(img_size=args.img_size, root=args.data_root)
+        train = SegmentationDataset.from_csv(_manifest(args, "train", fold), "train", **kw)
+        val = SegmentationDataset.from_csv(_manifest(args, "val", fold), "val", **kw)
+        test_csv = _manifest(args, "test", fold)
+        test = (SegmentationDataset.from_csv(test_csv, "val", **kw) if os.path.exists(test_csv)
+                else val)
+    return tuple(ds.shard(host, hosts) for ds in (train, val, test))
+
+
+def _common_steps(n_train: int, batch_size: int, device: torch.device) -> int:
+    """The steps of an epoch on every node: the smallest node's train shard
+    over ``batch_size`` (one MIN all-reduce). A node with one batch more
+    would issue a step's collectives that no other node matches."""
+    import torch.distributed as dist
+
+    steps = torch.tensor([n_train // batch_size], dtype=torch.int64, device=device)
+    dist.all_reduce(steps, op=dist.ReduceOp.MIN)
+    return int(steps)
 
 
 def _loaders(args, datasets, epoch: int):
@@ -255,29 +288,38 @@ def main_single(fold: int, args) -> dict:
     from lmnet_tpu_torch.models import LMNet
     from lmnet_tpu_torch.parallel.dist_utils import (
         get_world_size,
+        host_count,
+        host_index,
         is_dist_avail_and_initialized,
         is_main_process,
+        local_world_size,
     )
     from lmnet_tpu_torch.train import checkpoint as ckpt
     from lmnet_tpu_torch.train.engine import create_train_state
     from lmnet_tpu_torch.train.loop import evaluate, train_one_epoch, visualize
 
     set_seed(args.seed)
-    datasets = _datasets(args, fold)
-    steps_per_epoch = max(len(datasets[0]) // args.batch_size, 1)
+    hosts = host_count()
+    datasets = _datasets(args, fold, host_index(), hosts)
     device = _device(args)
+    # every node takes the smallest node's steps (one node: its own)
+    steps = (_common_steps(len(datasets[0]), args.batch_size, device) if hosts > 1
+             else len(datasets[0]) // args.batch_size)
+    steps_per_epoch = max(steps, 1)
 
     mesh, spatial = None, False
-    n_spatial = resolve_n_spatial(args, get_world_size()) if args.distributed else 1
+    n_spatial = (resolve_n_spatial(args, get_world_size(), local_world_size())
+                 if args.distributed else 1)
     if args.distributed and is_dist_avail_and_initialized():
         from lmnet_tpu_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh(n_spatial=n_spatial, device_type=device.type)
         spatial = n_spatial > 1
-        n_data = mesh.size(0)
+        n_data = mesh.size(0) // hosts
         if args.batch_size % n_data:
             raise SystemExit(f"--batch_size {args.batch_size} must be divisible by the "
-                             f"{n_data}-rank data axis under --distributed")
+                             f"{n_data}-rank data axis" + (" of a node" if hosts > 1 else "")
+                             + " under --distributed")
 
     model_kw = {}
     if args.filters:
@@ -325,8 +367,8 @@ def main_single(fold: int, args) -> dict:
 
     if args.visualization:
         state = _require_checkpoint(best_name, "--visualization")
-        if is_main_process():
-            _, _, test_loader = _loaders(args, datasets, 0)
+        if is_main_process():  # every node's test images
+            _, _, test_loader = _loaders(args, _datasets(args, fold), 0)
             n = visualize(state, test_loader, os.path.join(args.out_dir, "viz"),
                           args.num_classes, args.img_size)
             print(f"wrote {n} visualizations")
@@ -362,7 +404,7 @@ def main_single(fold: int, args) -> dict:
         else:
             test_loss, m = evaluate(state, test_loader, args.num_classes, args.img_size,
                                     compute_hd95=args.hd95, task=args.categories, mesh=mesh,
-                                    spatial=spatial)
+                                    cross_host=hosts > 1, spatial=spatial)
         names = ["loss", "accuracy", "precision", "recall",
                  "specificity", "dice", "iou", "mean_iou"]
         if args.hd95:
@@ -382,11 +424,11 @@ def main_single(fold: int, args) -> dict:
         train_loader, val_loader, _ = _loaders(args, datasets, epoch)
         state, train_loss, tm = train_one_epoch(
             state, train_loader, args.num_classes, args.img_size, task=args.categories,
-            seed=args.seed, epoch=epoch, mesh=mesh, spatial=spatial,
+            seed=args.seed, epoch=epoch, mesh=mesh, spatial=spatial, steps=steps,
         )
         val_loss, vm = evaluate(state, val_loader, args.num_classes, args.img_size,
                                 compute_hd95=args.hd95, task=args.categories, mesh=mesh,
-                                spatial=spatial)
+                                cross_host=hosts > 1, spatial=spatial)
         print(
             " train_loss:{:.4f} train_dice:{:.4f} train_iou:{:.4f} "
             "val_loss:{:.4f} val_dice:{:.4f} val_iou:{:.4f} ({:.1f} img/s)".format(

@@ -162,6 +162,11 @@ def make_loader(
             yield item
     finally:
         stop.set()
+        while t.is_alive():  # a consumer that stopped early: free a worker blocked on put
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
         if pool is not None:
             pool.shutdown(wait=False)
 

@@ -8,14 +8,19 @@ gives a sharded batch for free, a rank's step takes from ``parallel/batch.py``:
 the loss and every BatchNorm statistic over the global batch, and the
 gradients' mean over the ranks.
 
-Every rank builds the same global batch, and the same augmentation draws
-for it, then keeps its own rows. A batch whose rows do not divide by the
-data axis (an eval set's ragged tail) is split as ``numpy.array_split``
-splits it: the first ``B % W`` ranks take one row more. The counts are
-those of JAX's replication fallback (``mesh.py:64-66``), which computes the
-same function. The global batch is the batch the caller built on every
-rank; JAX's multi-host mode makes it W x the local batch instead
-(``mesh.py:74-86``), a rule the port does not follow.
+A node (``dist_utils.host_index``, of ``host_count``) stands for one JAX
+process, its L ranks for that process's devices. Every rank of a node
+builds the node's batch, and the same augmentation draws for it, then
+keeps its own rows (``node_rows``); the global batch is the nodes' batches
+in node order, N x the node's batch, as JAX's ``make_array_from_process_
+local_data`` makes it (``mesh.py:74-91``). The data axis is node-major, so
+a rank's rows of the global batch (``shard_rows``) lie inside its node's
+batch, at the offset node x the node's batch. On one node the node's batch
+is the global batch. A batch whose rows do not divide by a node's data
+ranks (an eval set's ragged tail) is split as ``numpy.array_split`` splits
+it: the first ``B % W`` ranks take one row more. The counts are those of
+JAX's replication fallback (``mesh.py:64-66``), which computes the same
+function.
 
 JAX's 'spatial' axis shards the image H: rank s of the axis holds the s-th
 block of rows of every image its data rank holds (``shard_batch(...,
@@ -40,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from lmnet_tpu_torch.metrics.hd95 import hausdorff_distance_95
+from lmnet_tpu_torch.parallel.dist_utils import host_count, local_world_size
 from lmnet_tpu_torch.parallel.batch import current_shard, shard
 from lmnet_tpu_torch.parallel.spatial import gather_rows
 
@@ -49,7 +55,10 @@ def make_mesh(n_data: int | None = None, n_spatial: int = 1, device_type: str = 
     'spatial') over the default process group (``init_distributed_mode``
     first): rank r is (r // n_spatial, r % n_spatial), so the ranks of one
     image's blocks are neighbours. ``n_data`` defaults to the world size
-    over ``n_spatial``; their product must be the world size."""
+    over ``n_spatial``; their product must be the world size. On several
+    nodes ``n_spatial`` must divide the ranks of a node, so that the ranks
+    of an image's blocks share a node (JAX would stack the nodes' images
+    along H instead)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -59,6 +68,9 @@ def make_mesh(n_data: int | None = None, n_spatial: int = 1, device_type: str = 
     n_data = world // n_spatial if n_data is None else n_data
     if n_data * n_spatial != world:
         raise ValueError(f"mesh {n_data}x{n_spatial} != {world} ranks")
+    if host_count() > 1 and local_world_size() % n_spatial:
+        raise ValueError(f"a 'spatial' axis of {n_spatial} ranks must divide the "
+                         f"{local_world_size()} ranks of a node")
     return init_device_mesh(device_type, (n_data, n_spatial), mesh_dim_names=("data", "spatial"))
 
 
@@ -103,13 +115,33 @@ def sum_group(mesh, sharded: bool):
     return dist.group.WORLD if sharded else data_group(mesh)
 
 
-def shard_rows(mesh, n: int) -> slice:
-    """This rank's rows of a global batch of ``n``: contiguous blocks in
-    rank order, the first ``n % W`` one row longer (``numpy.array_split``)."""
-    w, r = mesh.size(0), mesh.get_local_rank("data")
+def _split(n: int, w: int, r: int) -> slice:
+    """Block ``r`` of ``numpy.array_split(range(n), w)``."""
     base, extra = divmod(n, w)
     start = r * base + min(r, extra)
     return slice(start, start + base + (r < extra))
+
+
+def shard_rows(mesh, n: int) -> slice:
+    """This rank's rows of a global batch of ``n``: contiguous blocks in
+    rank order, the first ``n % W`` one row longer (``numpy.array_split``)."""
+    return _split(n, mesh.size(0), mesh.get_local_rank("data"))
+
+
+def node_ranks(mesh) -> int:
+    """The data ranks of a node: the data axis over the nodes."""
+    return mesh.size(0) // host_count()
+
+
+def node_rows(mesh, n: int) -> slice:
+    """This rank's rows of its node's batch of ``n``, split over the node's
+    data ranks as ``numpy.array_split`` splits it (``shard_rows`` on one
+    node). Where ``n`` divides by them, these are the rank's rows of the
+    global batch of N x ``n`` (``shard_rows``) less node x ``n``."""
+    if host_count() == 1:
+        return shard_rows(mesh, n)
+    per = node_ranks(mesh)
+    return _split(n, per, mesh.get_local_rank("data") % per)
 
 
 def sum_float64(parts, group, device) -> list[torch.Tensor]:
@@ -128,19 +160,36 @@ def sum_float64(parts, group, device) -> list[torch.Tensor]:
     return out
 
 
-def eval_totals(cm, terms, hd_sum, hd_cnt, group=None):
+def eval_totals(cm, terms, hd_sum, hd_cnt, group=None, slot: int = 0, slots: int = 1,
+                ragged: bool = False):
     """An eval pass's totals from its accumulators, summed over ``group``
     (the ranks that hold rows of the same batches; one process when None)
     in one float64 all-reduce: the confusion matrix, each batch's CE
     (numerator, denominator) in ``terms`` (one (2,) tensor a batch, zeros
     for a batch this rank holds no row of) and the HD95 sum and count.
     Returns (matrix (int64), the loss summed over the batches, each the
-    batch's numerator over its denominator, hd_sum, hd_cnt)."""
+    batch's numerator over its denominator, hd_sum, hd_cnt).
+
+    ``slots``: the loaders of ``group`` whose batches are batches of their
+    own (JAX's cross-host eval: one a node), this rank's loader being
+    ``slot``; batch i of one slot is summed over the ranks of that slot
+    alone. ``ragged``: the loaders may differ in length; the batches are
+    counted to the longest (one MAX all-reduce first) and a batch that no
+    rank of a slot held adds nothing."""
     device = cm.device
     nd = torch.stack(terms) if terms else torch.zeros((0, 2), device=device)
-    cm64, nd, hd = sum_float64([cm, nd, [hd_sum, hd_cnt]], group, device)
-    return (cm64.round().to(torch.int64), float((nd[:, 0] / nd[:, 1]).sum()),
-            float(hd[0]), int(hd[1]))
+    if ragged and group is not None:
+        longest = torch.tensor([len(nd)], dtype=torch.int64, device=device)
+        dist.all_reduce(longest, op=dist.ReduceOp.MAX, group=group)
+        nd = torch.cat([nd, nd.new_zeros((int(longest) - len(nd), 2))])
+    grid = nd.new_zeros((slots, *nd.shape))
+    grid[slot] = nd
+    cm64, grid, hd = sum_float64([cm, grid, [hd_sum, hd_cnt]], group, device)
+    num, den = grid[..., 0].reshape(-1), grid[..., 1].reshape(-1)
+    ratios = num / den
+    if ragged or slots > 1:  # a batch of a slot that no rank of it held
+        ratios = ratios[den > 0]
+    return cm64.round().to(torch.int64), float(ratios.sum()), float(hd[0]), int(hd[1])
 
 
 def hd95_values(preds: torch.Tensor, labels: torch.Tensor) -> list[float]:
@@ -166,12 +215,13 @@ def batch_sharding(mesh, spatial: bool = True):
 
 
 def shard_batch(mesh, images, labels, spatial: bool = True):
-    """This rank's rows (``shard_rows``) of a global NHWC batch and its (B,
-    H, W) labels, numpy arrays or tensors, as tensors on this rank's device
-    (the card's current one on a CUDA mesh); with ``spatial``, of those
-    rows this rank's block of H (``h_rows``) where ``shards_h`` allows it,
-    else whole images (JAX's fallback)."""
-    rows = shard_rows(mesh, len(images))
+    """This rank's rows (``node_rows``) of its node's NHWC batch and its (B,
+    H, W) labels, numpy arrays or tensors (on one node the global batch),
+    as tensors on this rank's device (the card's current one on a CUDA
+    mesh); with ``spatial``, of those rows this rank's block of H
+    (``h_rows``) where ``shards_h`` allows it, else whole images (JAX's
+    fallback)."""
+    rows = node_rows(mesh, len(images))
     H = images.shape[1]
     hs = h_rows(mesh, H) if shards_h(mesh, H, spatial) else slice(0, H)
     device = (torch.device("cuda", torch.cuda.current_device())

@@ -64,12 +64,13 @@ from lmnet_tpu_torch.ops.rc_flat import fold_rc_flat_weights, fused_rc_block
 from lmnet_tpu_torch.ops.rc_kernel import fold_rc_weights, fused_reparam_conv
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
 from lmnet_tpu_torch.parallel.batch import current_shard, whole
+from lmnet_tpu_torch.parallel.dist_utils import host_count
 from lmnet_tpu_torch.parallel.mesh import (
     eval_totals,
     h_rows,
     hd95_values,
+    node_rows,
     shard_context,
-    shard_rows,
     shards_h,
     sum_group,
 )
@@ -484,11 +485,13 @@ def serving_evaluate(
     rest. ``compute_hd95`` adds the mean HD95 of the class-1 masks, on the
     host from the served predictions, as ``train.loop.evaluate``.
 
-    ``mesh``: each batch split over the data axis, each rank serving its
-    rows (with the NAT backend asked for: B1 by default); the matrix, each
+    ``mesh``: each of the node's batches split over the node's data ranks,
+    each rank serving its rows (with the NAT backend asked for: B1 by
+    default), N nodes' batches i making global batch i, as JAX's
+    ``shard_batch`` makes it of host-local batches; the matrix, each
     batch's CE numerator and denominator and the HD95 sums are summed over
     the ranks in one float64 all-reduce (``eval_totals``), so the result is
-    one process's. An 'auto' backend is timed on every rank and rank 0's
+    one process's on the concatenated batches. An 'auto' backend is timed on every rank and rank 0's
     pick is broadcast. ``spatial``: each rank also serves its block of the
     image H where ``shards_h`` allows it (the sums then go over the world,
     HD95 on the gathered maps), else whole images.
@@ -505,7 +508,7 @@ def serving_evaluate(
     with torch.inference_mode(), shard_context(mesh, sharded):
         for images, masks in loader:
             rows = (slice(0, images.shape[0]) if mesh is None
-                    else shard_rows(mesh, images.shape[0]))
+                    else node_rows(mesh, images.shape[0]))
             if rows.start == rows.stop:  # a ragged tail left this rank no row
                 if "auto" in (rc_backend, nat_backend):
                     raise ValueError("an 'auto' backend is timed on every rank's rows of the "
@@ -533,7 +536,8 @@ def serving_evaluate(
                 for v in hd95_values(preds, y):
                     hd_sum, hd_cnt = hd_sum + v, hd_cnt + 1
     cm, total_loss, hd_sum, hd_cnt = eval_totals(
-        cm, terms, hd_sum, hd_cnt, sum_group(mesh, sharded) if mesh is not None else None)
+        cm, terms, hd_sum, hd_cnt, sum_group(mesh, sharded) if mesh is not None else None,
+        ragged=mesh is not None and host_count() > 1)
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}
     if compute_hd95:
         metrics["hd95"] = hd_sum / hd_cnt if hd_cnt else float("nan")

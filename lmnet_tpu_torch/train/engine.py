@@ -136,7 +136,8 @@ def train_step(
 
     ``mesh`` (``parallel.make_mesh``): ``images`` and ``labels`` are this
     rank's rows (``parallel/mesh.py::shard_rows``) of a global batch of
-    ``global_rows`` rows (default: this rank's rows times the data axis);
+    ``global_rows`` rows (default: this rank's rows times the data axis; on
+    N nodes, N x the node's batch, whose rows this rank's lie inside);
     with ``spatial``, of those rows this rank's block of H rows
     (``parallel/mesh.py::h_rows``, of a global H = H x the 'spatial'
     axis, which ``shards_h`` must allow), else whole images. The loss

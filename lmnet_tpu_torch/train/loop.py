@@ -13,16 +13,21 @@ and batch ``bi`` draws its augmentation from a CPU generator seeded from
 (seed, epoch, bi). A run resumed at epoch E therefore draws what an unbroken
 run draws at epoch E.
 
-``mesh`` (``parallel.make_mesh``): the data axis. Every rank reads the same
-global batches and draws the same augmentation parameters for them, then
-takes its own rows (``parallel/mesh.py::shard_rows``); the step's loss and
-BatchNorm statistics are the global batch's (``train.engine.train_step``).
-The training confusion matrix is summed over the ranks once an epoch; eval
-sums the matrix, each batch's CE numerator and denominator and the HD95
-sums in one float64 all-reduce, so a W-rank epoch reports what one process
-reports. ``evaluate(cross_host=True)`` is JAX's multi-host eval: each rank
-evaluates a loader of its own and (matrix, loss, HD95 sums) are summed over
-the ranks (``_allreduce_eval``).
+``mesh`` (``parallel.make_mesh``): the data axis. A node stands for a JAX
+process (``parallel/dist_utils.py``): every rank of a node reads the node's
+batches and draws the same augmentation parameters for them, then takes
+its own rows (``parallel/mesh.py::node_rows``); the global batch is the
+nodes' batches in node order, and the step's loss and BatchNorm statistics
+are its (``train.engine.train_step``). Every node draws the same
+parameters for its batch, as every JAX process folds the same key. On one
+node the node's batches are the global batches. The training confusion
+matrix is summed over the ranks once an epoch; eval sums the matrix, each
+batch's CE numerator and denominator and the HD95 sums in one float64
+all-reduce, so a W-rank epoch reports what one process reports on the
+concatenated batches. ``evaluate(cross_host=True)`` is JAX's multi-host
+eval: each node's loader is its own shard, each of its batches a batch of
+its own, and (matrix, loss, HD95 sums) are summed over the nodes; on one
+node each rank's loader is a shard of its own.
 
 ``spatial`` (JAX's): on a mesh with a 'spatial' axis of n > 1 ranks and an
 ``img_size`` that divides by 16 n (``parallel/mesh.py::shards_h``), each
@@ -34,6 +39,7 @@ Otherwise every rank of the axis runs whole images, as JAX's fallback.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
@@ -49,15 +55,17 @@ from lmnet_tpu_torch.metrics.confusion import (
     confusion_matrix,
     derived_metrics,
 )
+from lmnet_tpu_torch.parallel.dist_utils import host_count
 from lmnet_tpu_torch.parallel.mesh import (
+    _split,
     data_group,
     eval_totals,
     h_rows,
     hd95_values,
+    node_ranks,
+    node_rows,
     shard_context,
-    shard_rows,
     shards_h,
-    sum_float64,
     sum_group,
 )
 from lmnet_tpu_torch.train.engine import TrainState, eval_step, train_step
@@ -104,6 +112,7 @@ def train_one_epoch(
     epoch: int = 0,
     mesh=None,
     spatial: bool = False,
+    steps: int | None = None,
 ):
     """Run one training epoch over the loader's (uint8 images, uint8 masks)
     numpy batches. Returns (state, total_loss, metrics) with
@@ -113,11 +122,16 @@ def train_one_epoch(
     the model's device, JAX's default; False feeds the batches through
     ``eval_pipeline`` (normalise only). ``seed`` and ``epoch`` seed the
     epoch's dropout and augmentation generators (``fold_seed``). ``mesh``:
-    each batch split over the data axis (every rank needs a row of each);
-    the loss, the metrics and the img/s are the global batch's. ``spatial``:
-    the image H split over the mesh's 'spatial' axis where it divides.
+    each of the node's batches split over the node's data ranks (every rank
+    needs a row of each), N nodes' batches of B rows making a global batch
+    of N x B; the loss, the metrics and the img/s are the global batch's.
+    ``spatial``: the image H split over the mesh's 'spatial' axis where it
+    divides. ``steps``: at most this many batches; on several nodes every
+    node must take the same number of steps (each issues the step's
+    collectives), which the CLI makes the smallest node's.
     """
     device = _device(state)
+    hosts = host_count() if mesh is not None else 1
     sharded = mesh is not None and shards_h(mesh, img_size, spatial)
     hs = h_rows(mesh, img_size) if sharded else slice(None)
     state.generator.manual_seed(fold_seed(seed, epoch, DROPOUT_STREAM))
@@ -125,20 +139,23 @@ def train_one_epoch(
     total = torch.zeros((), dtype=torch.float32, device=device)
     n_images = 0
     t0 = time.perf_counter()
-    for bi, (images, masks) in enumerate(loader):
-        n = images.shape[0]
-        rows = slice(0, n) if mesh is None else shard_rows(mesh, n)
+    for bi, (images, masks) in enumerate(itertools.islice(loader, steps)):
+        n = images.shape[0]  # the node's batch
+        if hosts > 1 and n % node_ranks(mesh):  # raised alike on every rank
+            raise ValueError(f"a node's batch of {n} rows does not split over its "
+                             f"{node_ranks(mesh)} data ranks")
+        rows = slice(0, n) if mesh is None else node_rows(mesh, n)
         xi, mi = _to_device(images[rows], device), _to_device(masks[rows], device)
-        if augment_on_device:  # the global batch's draws, this rank's rows of them
+        if augment_on_device:  # the node's batch's draws, this rank's rows of them
             params = draw_params(augment_generator(seed, epoch, bi), n,
                                  tuple(images.shape[1:3]), img_size)
             x, y = apply_params(xi, mi, {k: v[rows] for k, v in params.items()}, img_size)
         else:
             x, y = eval_pipeline(xi, mi, img_size)
         state, loss, cm = train_step(state, x[:, hs], y[:, hs], cm, num_classes=num_classes,
-                                     mesh=mesh, global_rows=n, spatial=sharded)
+                                     mesh=mesh, global_rows=n * hosts, spatial=sharded)
         total += loss
-        n_images += images.shape[0]
+        n_images += n * hosts
         if log_every and (bi + 1) % log_every == 0:
             print(f"  step {bi + 1}: loss={float(loss):.4f}")
     if mesh is not None:
@@ -169,25 +186,29 @@ def evaluate(
     non-empty (nan if none), on the host from ``eval_step``'s predictions:
     no second forward, one device read a batch.
 
-    ``mesh``: each batch split over the data axis (a rank may hold none of
-    a ragged tail's rows); the matrix, each batch's CE numerator and
+    ``mesh``: each of the node's batches split over the node's data ranks
+    (a rank may hold none of a ragged tail's rows), N nodes' batches i
+    making global batch i; the matrix, each batch's CE numerator and
     denominator and the HD95 sums are summed over the ranks in one float64
     all-reduce at the end (``eval_totals``), so the result is one
-    process's. ``cross_host``: each rank's loader is its own shard,
-    evaluated whole; JAX's ``_allreduce_eval`` sums (matrix, loss, HD95
-    sums) over the ranks (the default group, or ``mesh``'s data axis).
-    ``spatial``: with ``mesh`` (not ``cross_host``, which evaluates whole
-    images as JAX's does), each rank evaluates its block of the image H
-    where it divides, and the sums go over the world."""
+    process's on the concatenated batches. ``cross_host``: each node's
+    loader is its own shard and each of its batches a batch of its own,
+    split over the node's data ranks as above; (matrix, loss, HD95 sums)
+    are summed over the nodes, JAX's ``_allreduce_eval``. On one node each
+    rank's loader is a shard of its own, evaluated whole (without ``mesh``,
+    each rank of the process group's). ``spatial``: with ``mesh`` (not
+    ``cross_host``, which evaluates whole images as JAX's does), each rank
+    evaluates its block of the image H where it divides, and the sums go
+    over the world."""
     device = _device(state)
     cm = ConfusionAccumulator.init(num_classes, device)
     terms = []  # each batch's (CE numerator, denominator)
     hd_sum, hd_cnt = 0.0, 0
-    split = mesh is not None and not cross_host
-    sharded = split and shards_h(mesh, img_size, spatial)
+    sharded = mesh is not None and not cross_host and shards_h(mesh, img_size, spatial)
     hs = h_rows(mesh, img_size) if sharded else slice(None)
+    rows_of, group, slot, slots, ragged = _eval_split(mesh, cross_host, sharded)
     for images, masks in loader:
-        rows = shard_rows(mesh, images.shape[0]) if split else slice(0, images.shape[0])
+        rows = rows_of(images.shape[0])
         if rows.start == rows.stop:  # a ragged tail left this rank no row
             terms.append(torch.zeros(2, device=device))
             continue
@@ -200,28 +221,37 @@ def evaluate(
             if compute_hd95:
                 for v in hd95_values(preds, y):
                     hd_sum, hd_cnt = hd_sum + v, hd_cnt + 1
-    group = data_group(mesh) if mesh is not None else None
-    cm, total_loss, hd_sum, hd_cnt = eval_totals(cm, terms, hd_sum, hd_cnt,
-                                                 sum_group(mesh, sharded) if split else None)
-    cm, total_loss, hd_sum, hd_cnt = _allreduce_eval(cm, total_loss, hd_sum, hd_cnt,
-                                                     cross_host, num_classes, group)
+    cm, total_loss, hd_sum, hd_cnt = eval_totals(cm, terms, hd_sum, hd_cnt, group, slot, slots,
+                                                 ragged)
     metrics = {k: float(v) for k, v in derived_metrics(cm, task).items()}
     if compute_hd95:
         metrics["hd95"] = hd_sum / hd_cnt if hd_cnt else float("nan")
     return total_loss, metrics
 
 
-def _allreduce_eval(cm, total_loss, hd_sum, hd_cnt, cross_host, num_classes, group=None):
-    """JAX's ``_allreduce_eval``: the per-rank eval accumulators (matrix,
-    loss, HD95 sum and count) summed over ``group`` (the default group when
-    None) in one float64 all-reduce; a no-op without ``cross_host`` or for
-    one rank. Every rank must call it."""
-    if not cross_host or not dist.is_initialized() or dist.get_world_size(group) == 1:
-        return cm, total_loss, hd_sum, hd_cnt
-    group = dist.group.WORLD if group is None else group
-    cm64, rest = sum_float64([cm, [total_loss, hd_sum, float(hd_cnt)]], group, cm.device)
-    return (cm64.round().to(torch.int64).reshape(num_classes, num_classes), float(rest[0]),
-            float(rest[1]), int(rest[2]))
+def _eval_split(mesh, cross_host: bool, sharded: bool):
+    """How an eval pass splits its batches and sums its totals: (this rank's
+    rows of a batch of n, the group its totals are summed over, its slot,
+    the slots and whether the loaders may differ in length, as
+    ``parallel/mesh.py::eval_totals`` takes them). Without ``cross_host``
+    the ranks' batches i make one batch; with it the ranks that share a
+    loader (a node's data ranks; on one node a rank) are a slot of their
+    own."""
+    def whole(n):
+        return slice(0, n)
+
+    if not cross_host:
+        if mesh is None:
+            return whole, None, 0, 1, False
+        return (lambda n: node_rows(mesh, n)), sum_group(mesh, sharded), 0, 1, host_count() > 1
+    if mesh is None:
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return whole, None, 0, 1, False
+        return whole, dist.group.WORLD, dist.get_rank(), dist.get_world_size(), True
+    per = node_ranks(mesh) if host_count() > 1 else 1
+    d = mesh.get_local_rank("data")
+    return ((lambda n: _split(n, per, d % per)), data_group(mesh), d // per, mesh.size(0) // per,
+            True)
 
 
 @torch.no_grad()
