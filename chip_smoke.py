@@ -259,6 +259,24 @@ Phases, each printing a line, any failure raising (exit code != 0):
      shards: rank 0's files, one finite 16-column row, B1 8 and B2 4 a
      rank. B1's, B2's, B5's and B6's ``launches_by_path`` gain 'multihost'
      (every rank of both runs summed).
+ 24. bench_torch.py, JAX's bench.py protocol on the port at B=128: (a) B1
+     at the four NAT stages of 256^2, 384^2 and 512^2 inputs (the 512^2
+     stage's q, k and v 805 MB each, every byte offset past 2^31) and (b)
+     B2 at the 256^2 stages, bf16, the whole batch in one launch, held on
+     images 0, 1, 126, 127 against the plain version of those images alone
+     at phases 3's and 6's tolerances, B2's d_rpb against the plain one
+     summed over chunks of 16 images, the C plans equal to nat_plan; (c)
+     B=128 distinct random bf16 images at each size through deploy_forward,
+     the logits of those four images against deploy_forward of them alone
+     by the serving rule; (d) one bf16 256^2 B=128 train_step (dropout off;
+     B1 4, B2 4) against the plain NAT's from the same weights, each
+     measured against a float32 plain step, with the three steps' peak
+     memory; then the protocol timed through bench_torch.run (serving at
+     256^2, training at 256^2, serving at 384^2 and 512^2, B=128, chains
+     of 10): each configuration's ms a step, peak GiB and launches,
+     bench.py's seven numbers, the launches exactly the chains' (B1 4 a
+     forward or step, B2 4 a step; B4-B7 none). B1's and B2's ``launches_by_path`` gain 'bench'
+     (the timed protocol) and 'bench_checks' ((c) and (d)).
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -601,10 +619,12 @@ def phase_times(deploy, xb, card_line):
     return k_total, p_total, worst, work, stages
 
 
-def check_bwd(label, got, q, k, v, rpb, g, B, H, W, C, scale) -> float:
+def check_bwd(label, got, q, k, v, rpb, g, B, H, W, C, scale, drpb=None) -> float:
     """Hold the backward kernel's (dq, dk, dv, d_rpb) ``got`` against the
     plain backward on q, k, v, g upcast to float32; print one line; raise if
-    they disagree. d_rpb is a sum over B*H*W pixels: a norm-relative bound."""
+    they disagree. d_rpb is a sum over B*H*W pixels: a norm-relative bound,
+    against ``drpb`` where given (the whole batch's, where q holds a few of
+    its images)."""
     from lmnet_tpu_torch.ops.nat_flat import nat_flat_bwd_plain
 
     ref = nat_flat_bwd_plain(q.float(), k.float(), v.float(), rpb, g.float(),
@@ -619,7 +639,8 @@ def check_bwd(label, got, q, k, v, rpb, g, B, H, W, C, scale) -> float:
             bound = 2**-8 * b.abs() + 1e-4 * (1 + big)
         ok = ok and bool((err <= bound).all()) and a.dtype == q.dtype
         errs.append(err.max().item())
-    rel = ((got[3] - ref[3]).norm() / ref[3].norm()).item()
+    drpb = ref[3] if drpb is None else drpb
+    rel = ((got[3] - drpb).norm() / drpb.norm()).item()
     ok = ok and rel <= 1e-4 and got[3].dtype == torch.float32
     tol = ("1e-5*(1+max|ref|)" if q.dtype == torch.float32
            else "2^-8*|ref| + 1e-4*(1+max|ref|)")
@@ -4159,6 +4180,240 @@ def phase_multihost(dev, card_line, refs) -> dict:
     return {"launches": launches, "ms": ms, "bf16_worst": b16}
 
 
+# phase 24: bench_torch.py, JAX's bench.py protocol on the port (B=128)
+BENCH_SIZES = (256, 384, 512)
+BENCH_SEED = 24
+
+
+def _bench_stages(size):
+    """(H, W, C) of the four NAT stages at ``size``^2 inputs, 12 heads:
+    natt4 .. natt1."""
+    return [(size >> i, size >> i, 12 << i) for i in range(4)]
+
+
+def _bench_rows(b):
+    """The images phase 24 holds against a reference: the first two and the
+    last two of the batch, where an offset fault past 2^31 bytes would
+    show."""
+    return [0, 1, b - 2, b - 1]
+
+
+def _bench_nat_kernels(dev, batch) -> tuple[float, float]:
+    """Phase 24 (a), (b): B1 at the four NAT stages of every served size and
+    B2 at the 256^2 stages, bf16, the whole batch in one launch, held on
+    images _bench_rows against the plain version of those images alone
+    (the plain NAT materialises 9 slots of k and v and the logits: ~14.5 GB
+    each in float32 for the whole 512^2 stage). The C plan (``kernel_plan``)
+    must equal ``nat_plan`` at each shape. Returns the worst B1 and B2
+    errors."""
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat
+
+    rows = _bench_rows(batch)
+    idx = torch.tensor(rows, device=dev)
+    worst_f = worst_b = 0.0
+    for size in BENCH_SIZES:
+        for i, (H, W, C) in enumerate(_bench_stages(size)):
+            g = torch.Generator(device=dev).manual_seed(BENCH_SEED * 1000 + size + i)
+            q, k, v = (torch.randn(batch, H, W * C, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(3))
+            rpb = torch.randn(HEADS, 5, 5, generator=g, device=dev) * 0.3
+            plan = _bench_plan(dev, batch, H, W, C, "fwd")
+            with torch.inference_mode():
+                got = nat_flat(q, k, v, rpb, HEADS, C, W)
+                print(f"phase 24: nat_fwd B={batch} H={H} W={W} C={C} bf16 "
+                      f"({q.numel() * 2 / 1e6:.1f} MB a tensor; {plan['variant']}, tile "
+                      f"{plan['tile'][0]}x{plan['tile'][1]}, grid {plan['grid']}), "
+                      f"images {rows}:")
+                worst_f = max(worst_f, check_fwd("phase 24", got[idx], q[idx], k[idx], v[idx],
+                                                 rpb, len(rows), H, W, C))
+            del got
+            if size == IMG:
+                worst_b = max(worst_b, _bench_b2(q, k, v, rpb, idx, g))
+            del q, k, v
+    return worst_f, worst_b
+
+
+def _bench_plan(dev, batch, H, W, C, kind) -> dict:
+    """``nat_plan`` at a phase 24 shape; on the card the C source's plan
+    (its launch guard included) must be the same."""
+    from lmnet_tpu_torch.ops.nat_flat import kernel_plan, nat_plan
+
+    plan = nat_plan(batch, H, W, HEADS, C // HEADS, torch.bfloat16, kind)
+    check(plan is not None and (dev.type != "cuda" or kernel_plan(
+        batch, H, W, HEADS, C // HEADS, torch.bfloat16, kind) == plan),
+        f"phase 24: nat_{kind}'s plans refuse or differ at {(batch, H, W, C)}")
+    return plan
+
+
+def _bench_b2(q, k, v, rpb, idx, g) -> float:
+    """Phase 24 (b) at one stage: B2 on the whole batch, dq, dk and dv on
+    images ``idx`` against the plain backward of those images alone, d_rpb
+    (a sum over the batch) against the plain backward's summed over chunks
+    of 16 images. Returns the worst dq/dk/dv error."""
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat_bwd, nat_flat_bwd_plain
+
+    (batch, H, WC), W = q.shape, q.shape[1]
+    C = WC // W
+    scale = float(C // HEADS) ** -0.5
+    plan = _bench_plan(q.device, batch, H, W, C, "bwd")
+    gy = torch.randn(batch, H, WC, generator=g, device=q.device, dtype=torch.bfloat16)
+    got = nat_flat_bwd(q, k, v, rpb, gy, HEADS, C, W, scale)
+    drpb = sum(nat_flat_bwd_plain(*(t[s:s + 16].float() for t in (q, k, v)), rpb,
+                                  gy[s:s + 16].float(), HEADS, C, W, scale)[3]
+               for s in range(0, batch, 16))
+    print(f"phase 24: nat_bwd B={batch} H={H} W={W} C={C} bf16 (d_rpb partials "
+          f"{plan['workspace'] * 4 / 1e6:.1f} MB; {plan['variant']}, grid {plan['grid']}), "
+          f"dq, dk, dv on images {idx.tolist()}, d_rpb over the batch in chunks of 16:")
+    return check_bwd("phase 24", (got[0][idx], got[1][idx], got[2][idx], got[3]), q[idx],
+                     k[idx], v[idx], rpb, gy[idx], len(idx), H, W, C, scale, drpb=drpb)
+
+
+def _bench_served(deploy, dev, batch) -> int:
+    """Phase 24 (c): a batch of distinct random bf16 images at every served
+    size through ``deploy_forward`` (B1), its logits on images _bench_rows
+    against ``deploy_forward`` of those images alone, by the serving rule.
+    Returns the B1 launches of the full batches."""
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat
+    from lmnet_tpu_torch.serve import deploy_forward
+
+    rows = _bench_rows(batch)
+    idx = torch.tensor(rows, device=dev)
+    launches = 0
+    for size in BENCH_SIZES:
+        g = torch.Generator(device=dev).manual_seed(BENCH_SEED + size)
+        x = torch.randn(batch, size, size, 3, generator=g, device=dev, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            before = nat_flat.launches
+            out = deploy_forward(deploy, x, num_heads=HEADS, nat_backend="flat")
+            launches += nat_flat.launches - before
+            finite = bool(torch.isfinite(out).all())
+            out = out[idx]
+            ref = deploy_forward(deploy, x[idx], num_heads=HEADS, nat_backend="flat")
+        scale = ref.abs().max().item()
+        check(finite, f"phase 24: non-finite logits in the {size}^2 B={batch} batch")
+        _logits_close(f"phase 24: deploy_forward bf16 {size}^2 B={batch} (distinct random "
+                      f"images), images {rows} against those images alone (logits of max "
+                      f"{scale:.3e})", out, ref, bound=0.05 * max(scale, 1.0))
+        del x, out
+    return launches
+
+
+def _bench_step(model, x, y, dev) -> tuple[float, dict, float, float]:
+    """One train_step of ``model`` with dropout off: the loss, the NAT
+    layers' gradients, the step's peak device GiB and its seconds."""
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.models.blocks import NeighborhoodAttention2D
+    from lmnet_tpu_torch.parity.convergence import NoDropout
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    state = create_train_state(NoDropout(model), tuple(x.shape), seed=0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, loss, _ = train_step(state, x, y, ConfusionAccumulator.init(2, dev))
+    loss = float(loss)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    grads = {f"{mn}.{pn}": p.grad.detach().float().clone() for mn, m in model.named_modules()
+             if isinstance(m, NeighborhoodAttention2D) for pn, p in m.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss, grads, peak, seconds
+
+
+def _bench_train_step(dev, batch, card_line) -> dict:
+    """Phase 24 (d): one bf16 train_step at 256^2 of ``batch`` random images
+    and labels through B1 and B2 (dropout off), against the bf16 step with
+    the plain NAT from the same weights, each measured against a float32
+    plain step (54 GiB at B=128) by phase 8's rule. Returns the flat step's
+    B1 and B2 launches."""
+    from lmnet_tpu_torch.models import LMNet
+    from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 3 leaves them
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(BENCH_SEED)
+    x = torch.randn(batch, IMG, IMG, 3, generator=g, device=dev)
+    y = torch.randint(0, 2, (batch, IMG, IMG), generator=g, device=dev, dtype=torch.int32)
+
+    def model(dtype, nat_backend):
+        m = LMNet(generator=torch.Generator().manual_seed(BENCH_SEED), dtype=dtype,
+                  nat_backend=nat_backend)
+        return m.to(dev)
+
+    before = (nat_flat.launches, nat_flat_bwd.launches)
+    lf, gf, pf, sf = _bench_step(model(torch.bfloat16, "flat"), x, y, dev)
+    launches = {"nat_fwd": nat_flat.launches - before[0],
+                "nat_bwd": nat_flat_bwd.launches - before[1]}
+    lp, gp, pp, sp = _bench_step(model(torch.bfloat16, "plain"), x, y, dev)
+    lr, gr, pr, sr = _bench_step(model(torch.float32, "plain"), x, y, dev)
+    ok = np.isfinite(lf) and abs(lf - lr) <= 2 * abs(lp - lr) + 1e-4 * abs(lr)
+    print(f"phase 24: train_step {IMG}^2 B={batch} dropout off: bf16 flat loss {lf:.6f} "
+          f"(peak {pf:.2f} GiB, {sf:.2f} s, B1/B2 launches {launches['nat_fwd']}/"
+          f"{launches['nat_bwd']}), bf16 plain {lp:.6f} (peak {pp:.2f} GiB, {sp:.2f} s), "
+          f"float32 plain {lr:.6f} (peak {pr:.2f} GiB, {sr:.2f} s) (tol |flat-fp32| <= "
+          f"2 |plain-fp32| + 1e-4 |fp32|) {'ok' if ok else 'FAIL'} [{card_line}]")
+    check(launches == {"nat_fwd": 4, "nat_bwd": 4},
+          f"phase 24: the flat train step launched {launches}, want B1 4 and B2 4")
+    ratios = {}
+    for n in gr:
+        ef, ep = (gf[n] - gr[n]).norm().item(), (gp[n] - gr[n]).norm().item()
+        ratios[n] = ef / (2 * ep + 1e-3 * gr[n].norm().item())
+        print(f"phase 24:   {n}: ||flat-fp32|| {ef:.3e} ||plain-fp32|| {ep:.3e} "
+              f"||fp32|| {gr[n].norm().item():.3e} ||flat-plain||/||plain|| "
+              f"{((gf[n] - gp[n]).norm() / gp[n].norm()).item():.3e}")
+    worst = max(ratios.values())
+    ok = ok and bool(np.isfinite(worst)) and worst <= 1.0
+    print(f"phase 24: train_step bf16 {IMG}^2 B={batch}: {len(gr)} NAT-layer gradients, "
+          f"worst ||flat-fp32|| / (2 ||plain-fp32|| + 1e-3 ||fp32||) = {worst:.3e} (tol 1), "
+          f"at {max(ratios, key=ratios.get)} {'ok' if ok else 'FAIL'}")
+    check(ok, "phase 24: flat and plain NAT disagree on the B=128 bf16 train step")
+    return launches
+
+
+def phase_bench(dev, card_line) -> dict:
+    """Phase 24: bench_torch.py's path at its sizes, checked (a)-(d), then
+    its protocol timed through bench_torch's own functions with the kernel
+    counters zeroed just before and read just after."""
+    import bench_torch
+
+    t_phase = time.perf_counter()
+    batch = bench_torch.BATCH
+    worst_f, worst_b = _bench_nat_kernels(dev, batch)
+    deploy = bench_torch.serving_model(dev)
+    served = _bench_served(deploy, dev, batch)
+    del deploy
+    step = _bench_train_step(dev, bench_torch.TRAIN_BATCH, card_line)
+    checks = {"nat_fwd": served + step["nat_fwd"], "nat_bwd": step["nat_bwd"]}
+
+    _sync(dev)
+    _zero_counters()
+    results = bench_torch.run(dev)
+    _sync(dev)
+    launches = _read_counters()
+    for name, r in results.items():
+        b = bench_torch.TRAIN_BATCH if name.startswith("train") else batch
+        print(f"phase 24: {bench_torch.config_line(name, r, b, card_line)}")
+    print(f"phase 24: bench_torch's numbers: "
+          f"{json.dumps(bench_torch.summary(results, card_line))}")
+    # 4 B1 launches a forward or step and 4 B2 a step; a warm-up chain and
+    # the reps, ITERS calls each
+    chains = 1 + bench_torch.REPS, 1 + bench_torch.LARGE_REPS
+    it = bench_torch.ITERS
+    want = {"nat_fwd": 4 * it * (2 * chains[0] + len(bench_torch.LARGE_SIZES) * chains[1]),
+            "nat_bwd": 4 * it * chains[0]}
+    ok = ({k: launches[k] for k in want} == want
+          and all(launches[k] == 0 for k in launches if k not in want)
+          and all(r["img_s"] > 0 and np.isfinite(r["acc"]) for r in results.values()))
+    print(f"phase 24: the protocol's kernel launches {json.dumps(launches)} (want "
+          f"{json.dumps(want)}, the rest 0), every rate > 0 and every accumulator finite "
+          f"{'ok' if ok else 'FAIL'}; phase 24 {time.perf_counter() - t_phase:.1f}s "
+          f"[{card_line}]")
+    check(ok, "phase 24: the protocol's launches or numbers are off")
+    return {"launches": {k: launches[k] for k in want}, "checks": checks,
+            "worst_fwd": worst_f, "worst_bwd": worst_b}
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in an Itanium-mangled entry (a length-prefixed
     identifier ending in ``_kernel`` or starting ``reduce_``), with its
@@ -4305,6 +4560,7 @@ def main() -> int:
     spatial = timed(21, phase_spatial, dev, card_line)
     convergence = timed(22, phase_convergence, dev, card_line)["launches"]
     multihost = timed(23, phase_multihost, dev, card_line, ddp.pop("refs"))["launches"]
+    bench = timed(24, phase_bench, dev, card_line)
     new_paths = {
         "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
                     "rc_remat_branches": options["launches"]["branches fused"]["nat_fwd"],
@@ -4327,6 +4583,9 @@ def main() -> int:
     b3_launches["convergence"] = convergence["nat_kernel"]
     for k in DDP_KERNELS:  # phase 23: every rank of both two-node runs
         new_paths[k]["multihost"] = multihost[k]
+    for k in ("nat_fwd", "nat_bwd"):  # phase 24: the timed protocol, and checks (c), (d)
+        new_paths[k]["bench"] = bench["launches"][k]
+        new_paths[k]["bench_checks"] = bench["checks"][k]
     cli_f = (cli["cli"]["nat_fwd"] + cli["train_augment"]["nat_fwd"]
              + sum(new_paths["nat_fwd"].values()))
     cli_b = (cli["cli"]["nat_bwd"] + cli["train_augment"]["nat_bwd"]
@@ -4342,7 +4601,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("nat_fwd", "nat_fwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:249",
               launches["nat_fwd"] + serve_launches + cli_f,
-              {"max_abs_err": max(worst, worst_timed,
+              {"max_abs_err": max(worst, worst_timed, bench["worst_fwd"],
                                   *(s["max_abs_err"] for s in spatial["slabs"]["nat_fwd"])),
                "ms": k_ms, "plain_ms": p_ms}, b1_work, ms_by_slab=spatial["slabs"]["nat_fwd"],
               launches_by_path={"training": launches["nat_fwd"], "serving": serve_launches,
@@ -4352,7 +4611,7 @@ def main() -> int:
               ms_by_stage=b1_stages),
         entry("nat_bwd", "nat_bwd.cu", "lmnet_tpu/ops/pallas/nat_flat.py:563",
               launches["nat_bwd"] + cli_b,
-              {"max_abs_err": max(worst_bwd, worst_bwd_timed,
+              {"max_abs_err": max(worst_bwd, worst_bwd_timed, bench["worst_bwd"],
                                   *(s["max_abs_err"] for s in spatial["slabs"]["nat_bwd"])),
                "ms": kb_ms, "plain_ms": pb_ms},
               b2_work, ms_by_stage=b2_stages, ms_by_slab=spatial["slabs"]["nat_bwd"],

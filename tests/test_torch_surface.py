@@ -115,9 +115,10 @@ def test_package_exports():
 
 
 def test_no_module_of_the_port_imports_jax():
-    """Every module of lmnet_tpu_torch, chip_smoke.py, the multi-node names
-    and the multi-node test's worker import in a fresh interpreter where
-    ``jax``, ``flax`` and ``lmnet_tpu`` cannot be imported."""
+    """Every module of lmnet_tpu_torch, chip_smoke.py, bench_torch.py, the
+    multi-node names and the multi-node test's worker import in a fresh
+    interpreter where ``jax``, ``flax`` and ``lmnet_tpu`` cannot be
+    imported."""
     code = """
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "lmnet_tpu"):
@@ -129,6 +130,7 @@ assert {"lmnet_tpu_torch.parallel.spatial", "lmnet_tpu_torch.parallel.dryrun",
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+importlib.import_module("bench_torch")
 from lmnet_tpu_torch.parallel.dist_utils import host_count, host_index, local_world_size
 from lmnet_tpu_torch.parallel.mesh import node_ranks, node_rows
 sys.path.insert(0, "tests")
