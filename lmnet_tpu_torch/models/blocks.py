@@ -63,6 +63,7 @@ from lmnet_tpu_torch.parallel.spatial import (
     spatial_mean,
     spatial_sum,
 )
+from lmnet_tpu_torch.spans import span
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -330,6 +331,10 @@ class ReparamConv(nn.Module):
     ``gelu_exact``: the erf GELU after the branch sum. B5 and B6 compute
     the tanh form, so 'fused' with ``gelu_exact`` raises (JAX quietly takes
     the branch graph there).
+
+    Every op of the block runs inside an ``lmnet.rc`` span, the recompute
+    too: the span sits inside the function the checkpoint runs again in the
+    backward, so with ``remat`` the backward enters ``lmnet.rc`` once more.
     """
 
     def __init__(self, cin: int, expand: int, cout: int, remat: bool | str = False,
@@ -372,29 +377,38 @@ class ReparamConv(nn.Module):
 
     def forward(self, x, train: bool = False):
         if not train:
-            e = F.hardswish(self.expand_conv(x))
-            ys = self._branch_convs(e)
-            return self._tail(x, [b.bn(y) for b, y in zip(self._branches(), ys)])
+            with span("lmnet.rc"):
+                e = F.hardswish(self.expand_conv(x))
+                ys = self._branch_convs(e)
+                return self._tail(x, [b.bn(y) for b, y in zip(self._branches(), ys)])
         if self.remat == "branches":
-            out, stats = checkpoint(self._after_expand, x, self.expand_conv[0](x),
-                                    use_reentrant=False, preserve_rng_state=False)
+            with span("lmnet.rc"):
+                x1 = self.expand_conv[0](x)
+            out, stats = checkpoint(self._after_expand, x, x1, use_reentrant=False,
+                                    preserve_rng_state=False)
         elif self.remat:
             out, stats = checkpoint(self._train_graph, x, use_reentrant=False,
                                     preserve_rng_state=False)
         else:
             out, stats = self._train_graph(x)
-        bns = [self.expand_conv[1]] + [b.bn for b in self._branches()]
-        for bn, (mean, var) in zip(bns, stats):
-            bn.update_stats(mean, var)
+        with span("lmnet.rc"):
+            bns = [self.expand_conv[1]] + [b.bn for b in self._branches()]
+            for bn, (mean, var) in zip(bns, stats):
+                bn.update_stats(mean, var)
         return out
 
     def _train_graph(self, x):
         """Train-mode block on batch statistics; returns (out, the five
         (mean, var) pairs: expand BN, then the four branch BNs)."""
-        return self._after_expand(x, self.expand_conv[0](x))
+        with span("lmnet.rc"):
+            return self._graph(x, self.expand_conv[0](x))
 
     def _after_expand(self, x, x1):
         """``_train_graph`` from the expand conv's output ``x1`` on."""
+        with span("lmnet.rc"):
+            return self._graph(x, x1)
+
+    def _graph(self, x, x1):
         e, mean, var = self.expand_conv[1].train_forward(x1)
         e = F.hardswish(e)
         stats = [(mean.detach(), var.detach())]

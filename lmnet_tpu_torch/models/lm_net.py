@@ -33,6 +33,7 @@ from lmnet_tpu_torch.models.blocks import (
     pyramid_pool,
 )
 from lmnet_tpu_torch.ops.reparam import fuse_reparam_branches
+from lmnet_tpu_torch.spans import span
 
 _BRANCHES = ("large", "square", "ver", "hor")
 
@@ -142,6 +143,9 @@ class LMNet(nn.Module):
         ``train``: BatchNorm on batch statistics, updating the running ones.
         ``deterministic`` (default ``not train``): dropout off; with it on,
         the masks are drawn from ``generator`` (on x's device).
+
+        The stages run inside the spans of ``serve/engine.py::deploy_forward``
+        (``lmnet.rc`` inside ``blocks.ReparamConv``, the recompute too).
         """
         det = (not train) if deterministic is None else deterministic
         if self.dtype is not None:
@@ -151,26 +155,43 @@ class LMNet(nn.Module):
             return stage[1](stage[0](h, train), train)
 
         x1 = rc2(self.conv1, x)
-        xd1 = self.down1(x1)
+        with span("lmnet.down"):
+            xd1 = self.down1(x1)
         x2 = rc2(self.conv2, xd1)
-        xd2 = self.down2(x2)
+        with span("lmnet.down"):
+            xd2 = self.down2(x2)
         x3 = rc2(self.conv3, xd2)
-        xd3 = self.down3(x3)
+        with span("lmnet.down"):
+            xd3 = self.down3(x3)
         x4 = rc2(self.conv4, xd3)
-        xd4 = self.down4(x4)
+        with span("lmnet.down"):
+            xd4 = self.down4(x4)
 
-        x5 = self.gft(pyramid_pool([x1, x2, x3, x4], xd4), det, generator)
+        with span("lmnet.gft"):
+            x5 = self.gft(pyramid_pool([x1, x2, x3, x4], xd4), det, generator)
 
-        x46 = self.natt1(self.skip1(x3, x4, train), det, generator, train)
-        x37 = self.natt2(self.skip2(x2, x3, x4, train), det, generator, train)
-        x28 = self.natt3(self.skip3(x1, x2, x3, train), det, generator, train)
-        x19 = self.natt4(self.skip4(x1, x2, train), det, generator, train)
+        natts = []
+        for skip, natt, xs in ((self.skip1, self.natt1, (x3, x4)),
+                               (self.skip2, self.natt2, (x2, x3, x4)),
+                               (self.skip3, self.natt3, (x1, x2, x3)),
+                               (self.skip4, self.natt4, (x1, x2))):
+            with span("lmnet.skip"):
+                s = skip(*xs, train)
+            with span("lmnet.natt"):
+                s = natt(s, det, generator, train)
+            natts.append(s)
+        x46, x37, x28, x19 = natts
 
-        x6 = rc2(self.dconv1, self.up1(x5) + x46)
-        x7 = rc2(self.dconv2, self.up2(x6) + x37)
-        x8 = rc2(self.dconv3, self.up3(x7) + x28)
-        x9 = rc2(self.dconv4, self.up4(x8) + x19)
-        return self.output_layer(x9).float()
+        def up(block, h, skip):
+            with span("lmnet.up"):
+                return block(h) + skip
+
+        x6 = rc2(self.dconv1, up(self.up1, x5, x46))
+        x7 = rc2(self.dconv2, up(self.up2, x6, x37))
+        x8 = rc2(self.dconv3, up(self.up3, x7, x28))
+        x9 = rc2(self.dconv4, up(self.up4, x8, x19))
+        with span("lmnet.head"):
+            return self.output_layer(x9).float()
 
 
 def structural_reparam(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:

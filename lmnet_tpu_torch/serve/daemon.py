@@ -21,6 +21,16 @@ Design:
 Transport is stdlib ``http.server`` (ThreadingHTTPServer): POST a
 ``.npy``-serialized float32 (N, H, W, 3) body to ``/predict`` and get a
 ``.npy`` int32 (N, H, W) mask back; ``GET /healthz`` reports the stats.
+
+``DynamicBatcher.stats`` (what ``/healthz`` reports): ``requests`` and
+``images`` submitted; of the batches served, ``batches``, ``padded`` (the
+zero images added up to the buckets), ``queue_s`` (summed over their
+requests, the seconds from ``submit`` to the start of the batch's
+concatenation) and ``busy_s`` (summed over batches, the seconds from the
+concatenation to the last reply; a batch counts once its replies are
+sent). ``queue_s / requests`` is the mean wait in the queue, ``busy_s`` the
+worker's time on batches. A batch whose device call raises counts in
+neither.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ def _bucket(n: int, max_batch: int) -> int:
 class _Request:
     x: np.ndarray  # (n, H, W, 3) float32
     future: Future = field(default_factory=Future)
+    t_submit: float = field(default_factory=time.perf_counter)
 
 
 class DynamicBatcher:
@@ -77,7 +88,8 @@ class DynamicBatcher:
         self.dtype = dtype
         self.device = torch.device(device)
         self._queue: queue.Queue[_Request | None] = queue.Queue()
-        self.stats = {"requests": 0, "images": 0, "batches": 0, "padded": 0}
+        self.stats = {"requests": 0, "images": 0, "batches": 0, "padded": 0, "queue_s": 0.0,
+                      "busy_s": 0.0}
         self._lock = threading.Lock()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -146,6 +158,7 @@ class DynamicBatcher:
                 if batch is None:
                     return
                 try:
+                    t0 = time.perf_counter()
                     x = np.concatenate([r.x for r in batch], axis=0)
                     n = x.shape[0]
                     b = _bucket(n, self.max_batch)
@@ -155,11 +168,14 @@ class DynamicBatcher:
                     with self._lock:
                         self.stats["batches"] += 1
                         self.stats["padded"] += b - n
+                        self.stats["queue_s"] += sum(t0 - r.t_submit for r in batch)
                     off = 0
                     for r in batch:
                         k = r.x.shape[0]
                         r.future.set_result(masks[off:off + k])
                         off += k
+                    with self._lock:
+                        self.stats["busy_s"] += time.perf_counter() - t0
                 except Exception as e:  # a device error reaches every caller
                     for r in batch:
                         if not r.future.done():

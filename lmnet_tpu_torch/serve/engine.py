@@ -75,20 +75,45 @@ from lmnet_tpu_torch.parallel.mesh import (
     sum_group,
 )
 from lmnet_tpu_torch.parallel.spatial import gather_rows, own_rows, spatial_mean
+from lmnet_tpu_torch.spans import span
 
 RC_BACKENDS = ("xla", "flat", "pallas")
 
 Tensors = Mapping[str, torch.Tensor]
 
 
+def _wb(sd: Tensors, name: str, dtype: torch.dtype, rows: slice | None = None,
+        flat: bool = False):
+    """``name``'s weight and bias (None where it has none) in ``dtype``: the
+    weight's output ``rows`` and the bias's, the weight flattened to 2-D
+    with ``flat``. Every weight of the deploy forward is cast here or in
+    ``_bn_affine``, under the ``lmnet.fold`` span, so that the ops that
+    follow take it in the activations' dtype and cast nothing."""
+    with span("lmnet.fold"):
+        w, b = sd[f"{name}.weight"], sd.get(f"{name}.bias")
+        if rows is not None:
+            w, b = w[rows], b[rows]
+        if flat:
+            w = w.flatten(1)
+        return w.to(dtype), None if b is None else b.to(dtype)
+
+
+def _bn_affine(sd: Tensors, name: str, dtype: torch.dtype):
+    """BatchNorm ``name``'s scale and shift on its running statistics,
+    formed in float32 and cast to ``dtype`` (under ``lmnet.fold``)."""
+    with span("lmnet.fold"):
+        inv = sd[f"{name}.weight"] / torch.sqrt(sd[f"{name}.running_var"] + BN_EPS)
+        shift = sd[f"{name}.bias"] - sd[f"{name}.running_mean"] * inv
+        return inv.to(dtype), shift.to(dtype)
+
+
 def _conv(sd: Tensors, name: str, x, stride: int = 1, groups: int = 1):
-    return conv_nhwc(x, sd[f"{name}.weight"], sd.get(f"{name}.bias"), stride, groups)
+    return conv_nhwc(x, *_wb(sd, name, x.dtype), stride, groups)
 
 
 def _bn(sd: Tensors, name: str, x):
-    inv = sd[f"{name}.weight"] / torch.sqrt(sd[f"{name}.running_var"] + BN_EPS)
-    shift = sd[f"{name}.bias"] - sd[f"{name}.running_mean"] * inv
-    return x * inv.to(x.dtype) + shift.to(x.dtype)
+    inv, shift = _bn_affine(sd, name, x.dtype)
+    return x * inv + shift
 
 
 def _ln_noaffine(x):
@@ -99,13 +124,13 @@ def _ln_noaffine(x):
 
 def _ln(sd: Tensors, name: str, x):
     y = _ln_noaffine(x)
-    return y * sd[f"{name}.weight"].to(x.dtype) + sd[f"{name}.bias"].to(x.dtype)
+    g, b = _wb(sd, name, x.dtype)
+    return y * g + b
 
 
 def _dense(sd: Tensors, name: str, x, rows: slice = slice(None)):
     """x @ W[rows].T + b[rows]; ``rows`` slices the output features."""
-    w = sd[f"{name}.weight"][rows]
-    return F.linear(x, w.to(x.dtype), sd[f"{name}.bias"][rows].to(x.dtype))
+    return F.linear(x, *_wb(sd, name, x.dtype, rows))
 
 
 def _mlp(sd: Tensors, name: str, x):
@@ -156,31 +181,41 @@ def _m2skip_composed(sd: Tensors, name: str, xl, xs, mode: str):
     """M2 skip with convs (and, in 'top' mode, convl) composed into the fuse
     conv: the (B, H, W, cm) intermediates are never formed. The strided convl
     of 'bottom' mode stays two-pass (a strided conv does not compose)."""
-    kf = sd[f"{name}.fuse_conv.0.weight"]
-    fb = sd[f"{name}.fuse_conv.0.bias"].float()
-    cm = sd[f"{name}.convl.0.weight"].shape[0]
+    dt = xl.dtype
     convs = f"{name}.convs.0" if mode == "bottom" else f"{name}.convs.1"
-    ks, bs = _compose_kk(sd[f"{convs}.weight"], sd[f"{convs}.bias"], kf[:, cm:])
+    with span("lmnet.fold"):
+        kf = sd[f"{name}.fuse_conv.0.weight"]
+        fb = sd[f"{name}.fuse_conv.0.bias"].float()
+        cm = sd[f"{name}.convl.0.weight"].shape[0]
+        ks, bs = _compose_kk(sd[f"{convs}.weight"], sd[f"{convs}.bias"], kf[:, cm:])
+        if mode == "bottom":
+            kl, bl = kf[:, :cm].to(dt), None
+            ks, bs = ks.to(dt), (bs + fb).to(dt)
+        else:
+            kl, bl = _compose_kk(sd[f"{name}.convl.0.weight"], sd[f"{name}.convl.0.bias"],
+                                 kf[:, :cm])
+            kl, bl, ks, bs = kl.to(dt), (bl + bs + fb).to(dt), ks.to(dt), None
     if mode == "bottom":
         a = _conv(sd, f"{name}.convl.0", xl, 2)
-        out = conv_nhwc(a, kf[:, :cm]) + conv_nhwc(xs, ks, bs + fb)
+        out = conv_nhwc(a, kl) + conv_nhwc(xs, ks, bs)
     else:
-        kl, bl = _compose_kk(sd[f"{name}.convl.0.weight"], sd[f"{name}.convl.0.bias"],
-                             kf[:, :cm])
-        out = conv_nhwc(xl, kl, bl + bs + fb) + conv_nhwc(upsample2x_align_corners(xs), ks)
+        out = conv_nhwc(xl, kl, bl) + conv_nhwc(upsample2x_align_corners(xs), ks)
     return gelu(_bn(sd, f"{name}.fuse_conv.1", out))
 
 
 def _m3skip_composed(sd: Tensors, name: str, xl, xm, xs):
-    kf = sd[f"{name}.fuse_conv.0.weight"]
-    cm = sd[f"{name}.convm.0.weight"].shape[0]
-    km, bm = _compose_kk(sd[f"{name}.convm.0.weight"], sd[f"{name}.convm.0.bias"],
-                         kf[:, cm:2 * cm])
-    ks, bs = _compose_kk(sd[f"{name}.convs.1.weight"], sd[f"{name}.convs.1.bias"],
-                         kf[:, 2 * cm:])
+    dt = xl.dtype
+    with span("lmnet.fold"):
+        kf = sd[f"{name}.fuse_conv.0.weight"]
+        cm = sd[f"{name}.convm.0.weight"].shape[0]
+        km, bm = _compose_kk(sd[f"{name}.convm.0.weight"], sd[f"{name}.convm.0.bias"],
+                             kf[:, cm:2 * cm])
+        ks, bs = _compose_kk(sd[f"{name}.convs.1.weight"], sd[f"{name}.convs.1.bias"],
+                             kf[:, 2 * cm:])
+        bias = (bm + bs + sd[f"{name}.fuse_conv.0.bias"].float()).to(dt)
+        kl, km, ks = kf[:, :cm].to(dt), km.to(dt), ks.to(dt)
     a = _conv(sd, f"{name}.convl.0", xl, 2)  # strided: not composable
-    bias = bm + bs + sd[f"{name}.fuse_conv.0.bias"].float()
-    out = (conv_nhwc(a, kf[:, :cm]) + conv_nhwc(xm, km, bias)
+    out = (conv_nhwc(a, kl) + conv_nhwc(xm, km, bias)
            + conv_nhwc(upsample2x_align_corners(xs), ks))
     return gelu(_bn(sd, f"{name}.fuse_conv.1", out))
 
@@ -220,11 +255,13 @@ def _quant_w_percol(w: torch.Tensor):
     return torch.round(w / s[:, None]).clamp(-127, 127).to(torch.int8), s
 
 
-def _dense_i8(x8, w8, s_in, s_col, bias, out_dtype):
-    """int8 x int8 product, rescaled, plus bias, in ``out_dtype``. The
-    product runs in float32, which is exact here: |sum| <= 127^2 C < 2^24."""
-    acc = F.linear(x8.float(), w8.float())
-    return (acc * (s_in * s_col) + bias).to(out_dtype)
+def _dense_i8(x8, w8f, scale, bias, out_dtype):
+    """int8 x int8 product, rescaled, plus bias, in ``out_dtype``: ``w8f`` is
+    the int8 weight in float32 and ``scale`` the product of the input's and
+    each output feature's step. The product runs in float32, which is exact
+    here: |sum| <= 127^2 C < 2^24."""
+    acc = F.linear(x8.float(), w8f)
+    return (acc * scale + bias).to(out_dtype)
 
 
 def _ln_fold(sd: Tensors, ln: str, w: torch.Tensor, b: torch.Tensor):
@@ -243,14 +280,18 @@ def _ln_dense(sd: Tensors, ln: str, dense: str, x, rows: list[slice], natt_int8:
     w, b = sd[f"{dense}.weight"], sd[f"{dense}.bias"]
     dt = x.dtype
     if natt_int8:
-        s = _ln_static_scale(sd, ln)
+        with span("lmnet.fold"):
+            s = _ln_static_scale(sd, ln)
+            w8, sw = _quant_w_percol(w)
+            folded = [(w8[r].float(), s * sw[r], b[r]) for r in rows]
         x8 = _ln_q8(sd, ln, x, s)
-        w8, sw = _quant_w_percol(w)
-        return [_dense_i8(x8, w8[r], s, sw[r], b[r], dt) for r in rows]
+        return [_dense_i8(x8, *f, dt) for f in folded]
     if ln_fold:
-        wf, bf = _ln_fold(sd, ln, w, b)
+        with span("lmnet.fold"):
+            wf, bf = _ln_fold(sd, ln, w, b)
+            folded = [(wf[r].to(dt), bf[r].to(dt)) for r in rows]
         xn = _ln_noaffine(x)
-        return [F.linear(xn, wf[r].to(dt), bf[r].to(dt)) for r in rows]
+        return [F.linear(xn, *f) for f in folded]
     xn = _ln(sd, ln, x)
     return [_dense(sd, dense, xn, r) for r in rows]
 
@@ -286,19 +327,19 @@ def natt_interior(sd: Tensors, name: str, emb, num_heads: int, nat_backend: str,
 def _rc(sd: Tensors, name: str, h, rc_backend: str):
     """Deploy ReparamConv: expand + BN + hardswish -> fused 5x5 depthwise +
     GELU -> SE -> pointwise + shortcut."""
-    if rc_backend == "flat":
-        return fused_rc_block(h, fold_rc_flat_weights(sd, name)).to(h.dtype)
-    if rc_backend == "pallas":
-        return fused_reparam_conv(h, fold_rc_weights(sd, name)).to(h.dtype)
+    if rc_backend in ("flat", "pallas"):
+        fold, block = ((fold_rc_flat_weights, fused_rc_block) if rc_backend == "flat"
+                       else (fold_rc_weights, fused_reparam_conv))
+        with span("lmnet.fold"):
+            w = fold(sd, name)
+        return block(h, w).to(h.dtype)
     e = F.hardswish(_bn(sd, f"{name}.expand_conv.1", _conv(sd, f"{name}.expand_conv.0", h)))
     t = gelu(_conv(sd, f"{name}.fuse_conv", e, groups=e.shape[-1]))
     # the SE squeeze stays in the compute dtype (float32 SE weights would
     # promote t, and every later block, to float32)
     m = spatial_mean(t)
-    w1 = sd[f"{name}.se.fc1.weight"].flatten(1)
-    w2 = sd[f"{name}.se.fc2.weight"].flatten(1)
-    m = F.relu(F.linear(m, w1.to(m.dtype), sd[f"{name}.se.fc1.bias"].to(m.dtype)))
-    sc = F.hardsigmoid(F.linear(m, w2.to(m.dtype), sd[f"{name}.se.fc2.bias"].to(m.dtype)))
+    m = F.relu(F.linear(m, *_wb(sd, f"{name}.se.fc1", m.dtype, flat=True)))
+    sc = F.hardsigmoid(F.linear(m, *_wb(sd, f"{name}.se.fc2", m.dtype, flat=True)))
     return _conv(sd, f"{name}.pointwise_conv.0", t * sc) + _conv(sd, f"{name}.shortcut.0", h)
 
 
@@ -343,39 +384,59 @@ def deploy_forward(
         raise ValueError(f"nat_backend tuple needs 4 entries, got {nb}")
     sd = variables
 
+    # every op of the forward runs inside one of the stage spans lmnet.rc,
+    # .down, .gft, .skip, .natt, .up and .head (PERF.md, "Spans and counters")
     def rc2(stage, h):
-        return _rc(sd, f"{stage}.1", _rc(sd, f"{stage}.0", h, rc_backend), rc_backend)
+        for i in (0, 1):
+            with span("lmnet.rc"):
+                h = _rc(sd, f"{stage}.{i}", h, rc_backend)
+        return h
 
     x1 = rc2("conv1", x)
-    xd1 = _conv(sd, "down1.0", x1, 2)
+    with span("lmnet.down"):
+        xd1 = _conv(sd, "down1.0", x1, 2)
     x2 = rc2("conv2", xd1)
-    xd2 = _conv(sd, "down2.0", x2, 2)
+    with span("lmnet.down"):
+        xd2 = _conv(sd, "down2.0", x2, 2)
     x3 = rc2("conv3", xd2)
-    xd3 = _conv(sd, "down3.0", x3, 2)
+    with span("lmnet.down"):
+        xd3 = _conv(sd, "down3.0", x3, 2)
     x4 = rc2("conv4", xd3)
-    xd4 = _conv(sd, "down4.0", x4, 2)
+    with span("lmnet.down"):
+        xd4 = _conv(sd, "down4.0", x4, 2)
 
-    h, w = xd4.shape[1], xd4.shape[2]
-    pooled = torch.cat([adaptive_avg_pool(t, (h, w)) for t in (x1, x2, x3, x4)] + [xd4], dim=-1)
-    x5 = _gft(sd, pooled, num_heads)
+    with span("lmnet.gft"):
+        h, w = xd4.shape[1], xd4.shape[2]
+        pooled = torch.cat([adaptive_avg_pool(t, (h, w)) for t in (x1, x2, x3, x4)] + [xd4],
+                           dim=-1)
+        x5 = _gft(sd, pooled, num_heads)
 
     m2, m3 = (_m2skip_composed, _m3skip_composed) if skip_compose else (_m2skip, _m3skip)
-    s1 = m2(sd, "skip1", x3, x4, "bottom")
-    s2 = m3(sd, "skip2", x2, x3, x4)
-    s3 = m3(sd, "skip3", x1, x2, x3)
-    s4 = m2(sd, "skip4", x1, x2, "top")
+    with span("lmnet.skip"):
+        s1 = m2(sd, "skip1", x3, x4, "bottom")
+    with span("lmnet.skip"):
+        s2 = m3(sd, "skip2", x2, x3, x4)
+    with span("lmnet.skip"):
+        s3 = m3(sd, "skip3", x1, x2, x3)
+    with span("lmnet.skip"):
+        s4 = m2(sd, "skip4", x1, x2, "top")
 
-    x46, x37, x28, x19 = (_natt(sd, f"natt{i + 1}", s, num_heads, nb[i], natt_int8, ln_fold)
-                          for i, s in enumerate((s1, s2, s3, s4)))
+    natts = []
+    for i, s in enumerate((s1, s2, s3, s4)):
+        with span("lmnet.natt"):
+            natts.append(_natt(sd, f"natt{i + 1}", s, num_heads, nb[i], natt_int8, ln_fold))
+    x46, x37, x28, x19 = natts
 
-    def up(name, h_):
-        return _conv(sd, f"{name}.1", upsample2x_align_corners(h_))
+    def up(name, h_, skip):
+        with span("lmnet.up"):
+            return _conv(sd, f"{name}.1", upsample2x_align_corners(h_)) + skip
 
-    x6 = rc2("dconv1", up("up1", x5) + x46)
-    x7 = rc2("dconv2", up("up2", x6) + x37)
-    x8 = rc2("dconv3", up("up3", x7) + x28)
-    x9 = rc2("dconv4", up("up4", x8) + x19)
-    return _conv(sd, "output_layer", x9).float()
+    x6 = rc2("dconv1", up("up1", x5, x46))
+    x7 = rc2("dconv2", up("up2", x6, x37))
+    x8 = rc2("dconv3", up("up3", x7, x28))
+    x9 = rc2("dconv4", up("up4", x8, x19))
+    with span("lmnet.head"):
+        return _conv(sd, "output_layer", x9).float()
 
 
 # (shape, dtype, heads, rc candidates, nat candidates) -> (the chosen pair,

@@ -1,4 +1,4 @@
-from lmnet_tpu_torch.train import checkpoint, profiling
+from lmnet_tpu_torch.train import checkpoint
 from lmnet_tpu_torch.train.engine import (
     TrainState,
     cosine_epoch_schedule,
@@ -17,7 +17,6 @@ __all__ = [
     "eval_step",
     "evaluate",
     "make_optimizer",
-    "profiling",
     "train_one_epoch",
     "train_step",
     "visualize",

@@ -38,6 +38,7 @@ from lmnet_tpu_torch.losses.losses import cross_entropy_loss, cross_entropy_term
 from lmnet_tpu_torch.metrics.confusion import confusion_matrix
 from lmnet_tpu_torch.parallel.batch import all_reduce_grads, global_batch
 from lmnet_tpu_torch.parallel.mesh import shard_context, shard_rows, sum_group
+from lmnet_tpu_torch.spans import span
 
 
 def cosine_epoch_schedule(
@@ -143,7 +144,12 @@ def train_step(
     axis, which ``shards_h`` must allow), else whole images. The loss
     returned is the global batch's, equal on every rank; ``cm`` gains this
     rank's pixels only (``train_one_epoch`` sums it over the ranks once an
-    epoch)."""
+    epoch).
+
+    Spans: ``lmnet.step.forward``, ``.loss``, ``.backward`` (the recompute
+    of ``rc_remat`` enters ``lmnet.rc`` inside it, on the autograd engine's
+    thread on a card) and ``.metrics``; AdamW records its own
+    ``Optimizer.step#AdamW.step``."""
     ce_weight = _weights(ce_weight, num_classes)
     dice_weight = _weights(dice_weight, num_classes)
     lr = state.schedule(state.step)
@@ -164,17 +170,20 @@ def train_step(
         context.enter_context(global_batch(sum_group(mesh, sharded), n, rows.start))
         context.enter_context(shard_context(mesh, sharded))
     with context:
-        logits = state.model(images, train=True, generator=state.generator)
-        loss = cross_entropy_loss(logits, labels, ce_weight, label_smoothing) + dice_loss(
-            logits, labels, dice_weight
-        )
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("lmnet.step.forward"):
+            logits = state.model(images, train=True, generator=state.generator)
+        with span("lmnet.step.loss"):
+            loss = cross_entropy_loss(logits, labels, ce_weight, label_smoothing) + dice_loss(
+                logits, labels, dice_weight
+            )
+        with span("lmnet.step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
     if mesh is not None:
         all_reduce_grads(state.model.parameters(), dist.group.WORLD)
     state.optimizer.step()
     state.step += 1
-    with torch.no_grad():
+    with torch.no_grad(), span("lmnet.step.metrics"):
         cm = cm + confusion_matrix(logits.argmax(dim=-1), labels, num_classes)
     return state, loss.detach(), cm
 

@@ -1,5 +1,5 @@
 """The port's training CLI (``lmnet_tpu_torch/cli/train.py``) and what it
-runs: checkpoints, HD95, visualize, profiling, and the slice as a whole
+runs: checkpoints, HD95, visualize, the profiler's spans, and the slice as a whole
 against JAX, on the CPU at TINY width.
 
 The cycle mirrors ``tests/test_cli_e2e.py``: train -> 16-column CSV ->
@@ -30,7 +30,8 @@ from lmnet_tpu_torch.metrics import ConfusionAccumulator, batch_hd95, hausdorff_
 from lmnet_tpu_torch.models import LMNet as TLMNet
 from lmnet_tpu_torch.models import blocks as t_blocks
 from lmnet_tpu_torch.train import checkpoint as ckpt
-from lmnet_tpu_torch.train import loop, profiling
+from lmnet_tpu_torch.spans import span
+from lmnet_tpu_torch.train import loop
 from lmnet_tpu_torch.train import create_train_state, eval_step, evaluate, train_step
 
 HW = 32
@@ -356,18 +357,22 @@ def test_augmentation_and_dropout_streams_follow_seed_and_epoch():
 
 
 def test_profiling_hooks(tmp_path):
-    """trace writes a Chrome trace holding the annotated region; StepTimer
-    keeps JAX's summary keys."""
-    timer = profiling.StepTimer("cpu")
-    with profiling.trace(str(tmp_path)):
+    """Under ``torch.profiler`` a span lands in the Chrome trace around the
+    ops inside it; with no profiler running it is the one shared null
+    context, entered and left with nothing recorded."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for _ in range(3):
-            with timer, profiling.annotate("lmnet_step"):
+            with span("lmnet_step"):
                 torch.ones(64, 64) @ torch.ones(64, 64)
-    (trace,) = os.listdir(tmp_path)
-    assert trace.endswith(".json") and "lmnet_step" in (tmp_path / trace).read_text()
-    s = timer.summary()
-    assert set(s) == {"steps", "mean_ms", "p50_ms", "p95_ms", "max_ms"} and s["steps"] == 3
-    assert profiling.StepTimer().summary() == {}
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert (tmp_path / "trace.json").read_text().count('"lmnet_step"') == 3
+    steps = [e for e in prof.events() if e.name == "lmnet_step"]
+    assert len(steps) == 3 and all(
+        any(c.name == "aten::matmul" for c in e.cpu_children) for e in steps)
+    off = span("lmnet_step")
+    assert off is span("another") and type(off).__name__ == "nullcontext"
+    with off:
+        pass
 
 
 @pytest.fixture
