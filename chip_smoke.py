@@ -5,9 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Phases, each printing a line, any failure raising (exit code != 0):
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
-  2. build the eight kernels (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
+  2. build the nine kernel sources (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
      rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
-     natt_flat.cu) with nvcc for sm_90a, one process per source, all
+     natt_flat.cu, bn_train.cu) with nvcc for sm_90a, one process per source, all
      started together; print ptxas's registers and spills of nat_fwd's,
      nat_bwd's, rc_fused's, rc_dw_gelu's, rc_stats's, natt_flat's,
      nat_kernel's and upsample_flat's kernels and the number of HMMA/HGMMA
@@ -277,6 +277,26 @@ Phases, each printing a line, any failure raising (exit code != 0):
      bench.py's seven numbers, the launches exactly the chains' (B1 4 a
      forward or step, B2 4 a step; B4-B7 none). B1's and B2's ``launches_by_path`` gain 'bench'
      (the timed protocol) and 'bench_checks' ((c) and (d)).
+ 25. the train-mode BatchNorm kernels (csrc/bn_train.cu, ops/bn_train.py)
+     at the eight BatchNorm shapes of the 256^2 training step (the blocks'
+     expand widths 24/48/96/192 at 256^2 .. 32^2, the skips' 12/24/48/96):
+     y, mean, var, dx, dgamma and dbeta in bf16 against the plain version
+     (the tolerances of tests/test_torch_bn_train.py), at B=2 and again at
+     B=128, the train cell's size, where each thread of the statistics
+     kernels walks its periods four at a time; at B=128
+     each shape's forward and forward + backward timed as CUDA graphs
+     (device time) for the kernels, the plain version and F.batch_norm (the
+     one-call yardstick,
+     which the port never calls), summed over a step of the train cell (a
+     block's BatchNorm forward twice under rc_remat, a skip's once, each
+     backward once) beside the step's byte bound (x read and y written once
+     a forward, dy and x read and dx written once a backward). Then the
+     launches of a bf16 256^2 train_step at B=2: 84 + 80 forwards and 84
+     backwards. The kernels line's ``launches_by_path`` for bn_train holds
+     that step's launches and those of every training phase before it (by
+     phase name; the children of phases 20-23 as ``ddp_ranks``, ``ddp_cli``,
+     ``spatial_ranks``, ``convergence_draws``, ``multihost_ranks``), each
+     training path's above 0.
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -344,7 +364,8 @@ DW_SHAPES = ([(2, h, w, 2 * c) for h, w, c in STAGES_256]
              + [(BATCH, h, w, 2 * c) for h, w, c in STAGES_288]
              + [(2, 5, 5, 48), (2, 28, 28, 20), (2, 32, 7, 48)])
 RC_KERNELS = ("rc_dw_gelu", "rc_stats", "rc_fused")
-KERNELS = ("nat_fwd", "nat_bwd", *RC_KERNELS, "nat_kernel", "upsample_flat", "natt_flat")
+KERNELS = ("nat_fwd", "nat_bwd", *RC_KERNELS, "nat_kernel", "upsample_flat", "natt_flat",
+           "bn_train")
 # H100 SXM: HBM3 bytes per second; float32 operations per second outside
 # the tensor cores; bf16 operations per second on the tensor cores, dense
 # (NVIDIA's data sheet)
@@ -2724,6 +2745,7 @@ def phase_export_daemon(dev, card_line, cli_export, cli_export_path) -> dict:
 
 # phase 20: the data-parallel path (lmnet_tpu_torch/parallel/)
 DDP_KERNELS = ("nat_fwd", "nat_bwd", "rc_dw_gelu", "rc_stats")
+BN_COUNTERS = ("bn_train", "bn_train_bwd")  # batch_norm_train, batch_norm_train_backward
 DDP_SEED = 8  # the seeded weights of phase 20's steps
 DDP_EVAL_IMAGES = 9  # batches of 4, 4, 1: the tail leaves rank 1 none
 
@@ -2753,22 +2775,40 @@ def _steps_ms(fn, n: int, dev) -> float:
 
 
 def _kernel_counters():
-    """The launch counters of B1, B2, B5, B6 (phase 20's kernels), B4 and
-    B7."""
+    """The launch counters of B1, B2, B5, B6 (phase 20's kernels), B4, B7
+    and the train-mode BatchNorm's forward and backward (``BN_COUNTERS``)."""
+    from lmnet_tpu_torch.ops.bn_train import batch_norm_train, batch_norm_train_backward
     from lmnet_tpu_torch.ops.nat_flat import nat_flat, nat_flat_bwd
     from lmnet_tpu_torch.ops.rc_flat import dw_gelu_flat
     from lmnet_tpu_torch.ops.rc_kernel import fused_reparam_conv
     from lmnet_tpu_torch.ops.rc_train import rc_branch_stats
     from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat
 
-    return dict(zip(DDP_KERNELS + ("rc_fused", "upsample_flat"),
+    return dict(zip(DDP_KERNELS + ("rc_fused", "upsample_flat") + BN_COUNTERS,
                     (nat_flat, nat_flat_bwd, dw_gelu_flat, rc_branch_stats, fused_reparam_conv,
-                     upsample2x_flat)))
+                     upsample2x_flat, batch_norm_train, batch_norm_train_backward)))
+
+
+def _bn_launches(counts: dict) -> int:
+    """The BatchNorm kernels' forwards and backwards in ``_read_counters``'s
+    ``counts``."""
+    return sum(counts[k] for k in BN_COUNTERS)
+
+
+# the BatchNorm kernels' launches that _zero_counters dropped in this process
+_BN_DROPPED = [0]
 
 
 def _zero_counters() -> None:
-    for fn in _kernel_counters().values():
+    for k, fn in _kernel_counters().items():
+        if k in BN_COUNTERS:
+            _BN_DROPPED[0] += fn.launches
         fn.launches = 0
+
+
+def _bn_total() -> int:
+    """The BatchNorm kernels' launches in this process since it started."""
+    return _BN_DROPPED[0] + _bn_launches(_read_counters())
 
 
 def _read_counters() -> dict:
@@ -3195,6 +3235,8 @@ def phase_ddp(dev, card_line) -> dict:
           f"the NCCL CLI run {json.dumps({k: cli_launch[k] for k in DDP_KERNELS})}; "
           f"phase 20 {time.perf_counter() - t_phase:.1f}s")
     return {"ddp": launches, "ddp_cli": {k: cli_launch[k] for k in DDP_KERNELS},
+            "bn": {"ddp": sum(_bn_launches(r["launches"]) for r in ranks),
+                   "ddp_cli": _bn_launches(cli_launch)},
             "one_ms": one_ms, "two_ms": two_ms, "collectives": coll, "bf16_worst": b16,
             "refs": refs}
 
@@ -3681,8 +3723,11 @@ def phase_spatial(dev, card_line) -> dict:
     from lmnet_tpu_torch.ops import resize
 
     for r in ranks:
+        # the BatchNorm kernels: the 16 expand and 4 skip BatchNorms, the 16
+        # expand ones again in the recompute, 20 backwards ('fused' keeps the
+        # branch statistics in B6)
         want = {"nat_fwd": 4, "nat_bwd": 4, "rc_dw_gelu": 32, "rc_stats": 32, "rc_fused": 0,
-                "upsample_flat": 7}
+                "upsample_flat": 7, "bn_train": 36, "bn_train_bwd": 20}
         check(r["fused_step_launches"] == want,
               f"rank {r['rank']}'s 'fused' + flat bf16 step launched {r['fused_step_launches']}"
               f", want {want}")
@@ -3752,6 +3797,8 @@ def phase_spatial(dev, card_line) -> dict:
           f"B4-B7 (the two ranks' 'fused' + flat steps and serving through B5 and B4) "
           f"{json.dumps(window_launches)}; phase 21 {time.perf_counter() - t_phase:.1f}s")
     return {"spatial": {**launches, **window_launches}, "slabs": {**slabs, **windows},
+            "bn": sum(_bn_launches(r["launches"]) + _bn_launches(r["fused_launches"])
+                      for r in ranks),
             "one_ms": one_ms, "two_ms": two_ms, "collectives": coll,
             "fused_collectives": fused_coll, "bf16_worst": b16, "bf16_fused_worst": b16_fused}
 
@@ -3919,7 +3966,8 @@ def phase_convergence(dev, card_line) -> dict:
               f"phase 22: {arm}: a kernel of the arm never launched: {per_arm}")
     print(f"phase 22: convergence launches {json.dumps(launches)}; {len(jobs)} draws in "
           f"parallel processes; phase 22 {time.perf_counter() - t_phase:.1f}s [{card_line}]")
-    return {"launches": launches, "records": records}
+    return {"launches": launches, "records": records,
+            "bn": sum(_bn_launches(r["launches"]) for r in recs.values())}
 
 
 # phase 23: JAX's multi-host mode, a node standing for a JAX process; two
@@ -4177,7 +4225,8 @@ def phase_multihost(dev, card_line, refs) -> dict:
           f"each rank's seconds a part {json.dumps(parts)}; "
           f"kernel launches "
           f"{json.dumps(launches)}; phase 23 {time.perf_counter() - t_phase:.1f}s")
-    return {"launches": launches, "ms": ms, "bf16_worst": b16}
+    return {"launches": launches, "ms": ms, "bf16_worst": b16,
+            "bn": sum(_bn_launches(r["launches"]) for r in two + four)}
 
 
 # phase 24: bench_torch.py, JAX's bench.py protocol on the port (B=128)
@@ -4396,12 +4445,14 @@ def phase_bench(dev, card_line) -> dict:
         print(f"phase 24: {bench_torch.config_line(name, r, b, card_line)}")
     print(f"phase 24: bench_torch's numbers: "
           f"{json.dumps(bench_torch.summary(results, card_line))}")
-    # 4 B1 launches a forward or step and 4 B2 a step; a warm-up chain and
-    # the reps, ITERS calls each
+    # 4 B1 launches a forward or step and 4 B2 a step; the BatchNorm
+    # kernels 84 + 80 forwards (rc_remat's recompute) and 84 backwards a
+    # step; a warm-up chain and the reps, ITERS calls each
     chains = 1 + bench_torch.REPS, 1 + bench_torch.LARGE_REPS
     it = bench_torch.ITERS
     want = {"nat_fwd": 4 * it * (2 * chains[0] + len(bench_torch.LARGE_SIZES) * chains[1]),
-            "nat_bwd": 4 * it * chains[0]}
+            "nat_bwd": 4 * it * chains[0], "bn_train": (84 + 80) * it * chains[0],
+            "bn_train_bwd": 84 * it * chains[0]}
     ok = ({k: launches[k] for k in want} == want
           and all(launches[k] == 0 for k in launches if k not in want)
           and all(r["img_s"] > 0 and np.isfinite(r["acc"]) for r in results.values()))
@@ -4434,6 +4485,155 @@ def _kernel_name(mangled: str) -> str:
                            else "")
         i = j + len(name)
     return mangled[:48]
+
+
+# phase 25: (H, C, forwards a step, BatchNorms) of the 256^2 training step's
+# BatchNorms: the 16 blocks' five at their expand width (4 blocks a shape),
+# run forward twice under rc_remat; the 4 skips' once
+BN_SHAPES = ((256, 24, 2, 20), (128, 48, 2, 20), (64, 96, 2, 20), (32, 192, 2, 20),
+             (256, 12, 1, 1), (128, 24, 1, 1), (64, 48, 1, 1), (32, 96, 1, 1))
+BN_BATCH = 128
+
+
+def _bn_case(B, H, C, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    off = torch.linspace(-2.0, 3.0, C, device=dev)
+    x = (torch.randn(B, H, H, C, generator=g, device=dev) * 2 + off).to(dtype)
+    dy = torch.randn(B, H, H, C, generator=g, device=dev).to(dtype)
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    b = torch.rand(C, generator=g, device=dev) - 0.5
+    return x, dy, w, b
+
+
+def _bn_fwd_bwd(fn, x, dy, w, b):
+    """(y, dx, dw, db) of ``fn(x, w, b) -> y`` and its autograd backward."""
+    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    y = fn(xr, wr, br)
+    y.backward(dy)
+    return y, xr.grad, wr.grad, br.grad
+
+
+def _bn_graph_ms(fn, x, dy, w, b) -> tuple[float, float]:
+    """(forward, forward + backward) device milliseconds of ``fn(x, w, b)
+    -> y`` and its autograd backward, each captured 4 times in a CUDA graph
+    (the host's launch and autograd time out of it)."""
+    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+
+    def fwd_bwd():
+        xr.grad = wr.grad = br.grad = None
+        fn(xr, wr, br).backward(dy)
+
+    with torch.no_grad():
+        f_ms = graph_ms(lambda: fn(x, w, b), iters=10, calls=4)
+    return f_ms, graph_ms(fwd_bwd, iters=10, calls=4)
+
+
+def phase_bn_train(dev, card_line) -> dict:
+    """Phase 25: the train-mode BatchNorm kernels against the plain version
+    and timed at the train cell's shapes (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.models import LMNet
+    from lmnet_tpu_torch.ops.bn_train import (
+        batch_norm_train,
+        batch_norm_train_backward,
+        batch_norm_train_plain,
+    )
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    eps = 1e-5
+
+    def kernel(x, w, b):
+        return batch_norm_train(x, w, b, eps)[0]
+
+    def plain(x, w, b):
+        return batch_norm_train_plain(x, w, b, eps)[0]
+
+    def library(x, w, b):  # F.batch_norm on the NCHW view (channels_last), training
+        return F.batch_norm(x.permute(0, 3, 1, 2), None, None, w, b, True, 0.1,
+                            eps).permute(0, 2, 3, 1)
+
+    def against_plain(x, dy, w, b, where) -> float:
+        """The kernels' statistics, y, dx, dgamma and dbeta against the plain
+        version's on the same bf16 tensors; the worst |y|, |dx| error."""
+        got = _bn_fwd_bwd(kernel, x, dy, w, b)
+        want = _bn_fwd_bwd(plain, x, dy, w, b)
+        with torch.no_grad():
+            _, mean, var = batch_norm_train(x, w, b, eps)
+            _, wmean, wvar = batch_norm_train_plain(x, w, b, eps)
+        ms = x.float().square().mean((0, 1, 2))
+        check(bool(((mean - wmean).abs() <= 1e-5 * ms.sqrt()).all())
+              and bool(((var - wvar).abs() <= 1e-5 * ms).all()),
+              f"phase 25: bn_train statistics {where}")
+        worst = 0.0
+        for name, gt, wt in zip(("y", "dx"), got[:2], want[:2]):
+            err = (gt.float() - wt.float()).abs()
+            worst = max(worst, err.max().item())
+            check(bool((err <= 2**-7 * wt.float().abs() + 1e-3).all()),
+                  f"phase 25: bn_train {name} {where}: {err.max().item()}")
+        for name, gt, wt in zip(("dgamma", "dbeta"), got[2:], want[2:]):
+            err = (gt - wt).abs().max().item()
+            # the same bf16 dy and x on both sides: float32 sums of B H^2
+            # products in another order, within 1e-4 of the largest entry
+            check(err <= 1e-4 * wt.abs().max().item(),
+                  f"phase 25: bn_train {name} {where}: {err}")
+        return worst
+
+    worst = max(against_plain(*_bn_case(2, H, C, torch.bfloat16, dev), f"at B=2 H={H} C={C}")
+                for H, C, _, _ in BN_SHAPES)
+    print(f"phase 25: bn_train against the plain version at the 8 BatchNorm shapes of the 256^2 "
+          f"step (B=2, bf16): statistics, y, dx, dgamma, dbeta within tolerance; worst |y|, "
+          f"|dx| error {worst:.3g}")
+
+    work = Work()
+    step = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    shapes = []
+    worst_b = 0.0
+    for H, C, nfwd, count in BN_SHAPES:
+        x, dy, w, b = _bn_case(BN_BATCH, H, C, torch.bfloat16, dev, seed=1)
+        # the train cell's size, where every thread of the statistics
+        # kernels walks its periods four at a time
+        worst_b = max(worst_b, against_plain(x, dy, w, b, f"at B={BN_BATCH} H={H} C={C}"))
+        torch.cuda.empty_cache()
+        nbytes = x.numel() * x.element_size()
+        work.add(count * (nfwd * 2 * nbytes + 3 * nbytes), count * (nfwd * 4 + 8) * x.numel())
+        row = {"H": H, "C": C, "forwards": nfwd, "bns": count}
+        for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+            f_ms, fb_ms = _bn_graph_ms(fn, x, dy, w, b)
+            row[name] = {"fwd_ms": round(f_ms, 4), "fwd_bwd_ms": round(fb_ms, 4)}
+            step[name] += count * ((nfwd - 1) * f_ms + fb_ms)
+        row["kernel"]["fwd_GBs"] = round(3 * nbytes / row["kernel"]["fwd_ms"] / 1e6, 1)
+        row["kernel"]["bwd_GBs"] = round(
+            5 * nbytes / (row["kernel"]["fwd_bwd_ms"] - row["kernel"]["fwd_ms"]) / 1e6, 1)
+        shapes.append(row)
+        print(f"phase 25: bn_train {json.dumps(row)}")
+        del x, dy
+    print(f"phase 25: bn_train against the plain version at the same 8 shapes at B={BN_BATCH} "
+          f"(bf16): statistics, y, dx, dgamma, dbeta within tolerance; worst |y|, |dx| error "
+          f"{worst_b:.3g}")
+    worst = max(worst, worst_b)
+    bound_ms, _ = work.bound()
+    print(f"phase 25: a 256^2 B={BN_BATCH} training step's 84 + 80 BatchNorm forwards and 84 "
+          f"backwards [{card_line}]: kernels {step['kernel']:.2f} ms, bound {bound_ms:.2f} ms "
+          f"(bytes), plain {step['plain']:.2f} ms, F.batch_norm {step['library']:.2f} ms")
+
+    model = LMNet(generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                  rc_remat=True)
+    state = create_train_state(model, (2, 256, 256, 3), seed=0, device=dev)
+    x = torch.randn(2, 256, 256, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    before = (batch_norm_train.launches, batch_norm_train_backward.launches)
+    train_step(state, x, (x.mean(-1) > 0).long(), ConfusionAccumulator.init(2, dev))
+    torch.cuda.synchronize()
+    launches = (batch_norm_train.launches - before[0],
+                batch_norm_train_backward.launches - before[1])
+    check(launches == (84 + 80, 84), f"phase 25: bn_train launches of a train_step {launches}")
+    print(f"phase 25: a bf16 256^2 train_step (B=2, rc_remat): bn_train {launches[0]} forwards, "
+          f"{launches[1]} backwards")
+    del model, state
+    return {"max_abs_err": worst, "ms": step["kernel"], "plain_ms": step["plain"],
+            "library_ms": step["library"], "work": work, "shapes": shapes,
+            "launches": {"train_step": sum(launches)}}
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -4511,7 +4711,7 @@ def main() -> int:
           f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
     for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu", "rc_stats", "natt_flat",
-                 "nat_kernel", "upsample_flat"):
+                 "nat_kernel", "upsample_flat", "bn_train"):
         for line in ptxas_report(logs.get(name, "")) or ["(built earlier; no report)"]:
             print(f"phase 2: ptxas {name}.cu {line}")
     for name in ("rc_fused", "natt_flat"):
@@ -4519,11 +4719,18 @@ def main() -> int:
 
     seconds = {"2": round(time.perf_counter() - t0, 1)}
 
+    bn_paths = {}  # the BatchNorm kernels' launches in this process, by phase
+
     def timed(n, fn, *args):
-        """``fn(*args)``, its wall seconds kept as phase ``n``'s."""
+        """``fn(*args)``, its wall seconds kept as phase ``n``'s, and the
+        BatchNorm kernels' launches in this process under its name."""
         t = time.perf_counter()
+        bn0 = _bn_total()
         out = fn(*args)
         seconds[str(n)] = round(time.perf_counter() - t, 1)
+        bn_n = _bn_total() - bn0
+        if bn_n and n != 25:  # phase 25 reports its own
+            bn_paths[fn.__name__.removeprefix("phase_")] = bn_n
         return out
 
     worst = timed(3, phase_kernel_vs_plain, dev)
@@ -4558,9 +4765,22 @@ def main() -> int:
                        cli_export_path)
     ddp = timed(20, phase_ddp, dev, card_line)
     spatial = timed(21, phase_spatial, dev, card_line)
-    convergence = timed(22, phase_convergence, dev, card_line)["launches"]
-    multihost = timed(23, phase_multihost, dev, card_line, ddp.pop("refs"))["launches"]
+    convergence = timed(22, phase_convergence, dev, card_line)
+    multihost = timed(23, phase_multihost, dev, card_line, ddp.pop("refs"))
     bench = timed(24, phase_bench, dev, card_line)
+    bn = timed(25, phase_bn_train, dev, card_line)
+    # the BatchNorm kernels on every training path: this process's phases,
+    # and the children of phases 20-23 (their ranks, CLI runs and draws)
+    bn["launches"].update(bn_paths, ddp_ranks=ddp["bn"]["ddp"], ddp_cli=ddp["bn"]["ddp_cli"],
+                          spatial_ranks=spatial["bn"], convergence_draws=convergence["bn"],
+                          multihost_ranks=multihost["bn"])
+    need = ("flat_vs_plain_step", "model_options", "ddp_ranks", "ddp_cli", "spatial_ranks",
+            "convergence_draws", "multihost_ranks", "bench")
+    print(f"chip_smoke: bn_train launches by path {json.dumps(bn['launches'])}")
+    check(all(bn["launches"].get(k, 0) > 0 for k in need)
+          and all(v >= 0 for v in bn["launches"].values()),
+          f"a training path never launched the BatchNorm kernels: {bn['launches']}")
+    convergence, multihost = convergence["launches"], multihost["launches"]
     new_paths = {
         "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
                     "rc_remat_branches": options["launches"]["branches fused"]["nat_fwd"],
@@ -4653,6 +4873,8 @@ def main() -> int:
               ms_by_call=b7["ms_by_call"], ms_by_slab=spatial["slabs"]["upsample_flat"]),
         entry("natt_flat", "natt_flat.cu", "lmnet_tpu/ops/pallas/natt_flat.py:265",
               b8_launches, b8, b8_work, unfused_ms=b8["unfused_ms"], ms_by_stage=b8_stages),
+        entry("bn_train", "bn_train.cu", None, sum(bn["launches"].values()), bn, bn["work"],
+              launches_by_path=bn["launches"], ms_by_shape=bn["shapes"]),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -48,12 +48,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from lmnet_tpu_torch.ops.bn_train import batch_norm_train, bn_normalize
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 from lmnet_tpu_torch.ops.nat_flat import nat_flat
 from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
 from lmnet_tpu_torch.ops.rc_train import rc_branch_act
 from lmnet_tpu_torch.ops.resize import adaptive_avg_pool, upsample2x_align_corners
-from lmnet_tpu_torch.parallel.batch import current_shard, dropout_rows, moments, whole
+from lmnet_tpu_torch.parallel.batch import current_shard, dropout_rows, whole
 from lmnet_tpu_torch.parallel.spatial import (
     crop,
     gather_rows,
@@ -206,13 +207,13 @@ class BatchNorm(nn.Module):
 
     def train_forward(self, x):
         """Normalise with the batch statistics; returns (y, mean, var) and
-        leaves the running statistics alone."""
-        mean, var = moments(x.float(), (0, 1, 2))
-        return self.normalize(x, mean, var), mean, var
+        leaves the running statistics alone. ``ops/bn_train.py``: the
+        hand-written kernels on a CUDA tensor, the plain float32 composition
+        on a CPU one."""
+        return batch_norm_train(x, self.weight, self.bias, BN_EPS)
 
     def normalize(self, x, mean, var):
-        inv = torch.rsqrt(var + BN_EPS) * self.weight
-        return ((x - mean) * inv + self.bias).to(x.dtype)
+        return bn_normalize(x, mean, var, self.weight, self.bias, BN_EPS)
 
     @torch.no_grad()
     def update_stats(self, mean, var) -> None:

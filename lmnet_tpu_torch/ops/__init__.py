@@ -1,4 +1,5 @@
 from lmnet_tpu_torch.ops import reparam
+from lmnet_tpu_torch.ops.bn_train import batch_norm_train
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 from lmnet_tpu_torch.ops.nat_flat import nat_flat
 from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
@@ -16,6 +17,7 @@ from lmnet_tpu_torch.ops.upsample_flat import upsample2x_flat
 
 __all__ = [
     "adaptive_avg_pool",
+    "batch_norm_train",
     "bilinear_resize",
     "dw_gelu_flat",
     "fold_natt_weights",

@@ -9,7 +9,10 @@ the port holds only its own rows, so its step runs inside
 
 * ``global_sum`` all-reduces a tensor over ``group``, with a gradient;
 * ``moments`` gives the float32 mean and biased variance over the global
-  batch (a BatchNorm's statistics) from the all-reduced sums of x and x^2;
+  batch (a BatchNorm's statistics) from the all-reduced sums of x and x^2,
+  divided by ``stat_count``; the BatchNorm kernels (``ops/bn_train.py``)
+  sum through ``global_sum`` in their forward and ``reduce_grad`` over
+  ``sum_group`` in their backward;
 * ``global_count`` is a per-pixel count over the global batch;
 * ``dropout_rows`` cuts this rank's rows out of a dropout mask drawn at the
   global batch's shape, so W ranks draw the masks one process draws.
@@ -160,10 +163,24 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        COUNTS["backward"] += 1
-        return g, None
+        return reduce_grad(g, ctx.group), None
+
+
+def reduce_grad(g: torch.Tensor, group) -> torch.Tensor:
+    """``g`` summed over ``group``: the backward of ``global_sum``, for a
+    hand-written backward whose forward summed over that group
+    (``ops/bn_train.py``); counted as a backward all-reduce."""
+    g = g.contiguous().clone()
+    dist.all_reduce(g, group=group)
+    COUNTS["backward"] += 1
+    return g
+
+
+def sum_group():
+    """The group ``global_sum`` sums over: the active global batch's, or
+    None outside one."""
+    b = _batch()
+    return None if b is None else b.group
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
@@ -183,6 +200,24 @@ def global_count(t: torch.Tensor) -> int:
     return t.numel() // t.shape[0] * rows * _h_blocks()
 
 
+def stat_count(t: torch.Tensor, dims, h_axis: int = 1) -> int:
+    """The number of ``t``'s elements a batch statistic over ``dims`` (the
+    batch axis 0, and H, axis ``h_axis``, inside a shard) counts: over the
+    global batch's rows and the global H inside a global batch, else
+    ``t``'s own. Inside a shard it needs a global batch: a block's own
+    statistics are not the map's."""
+    b = _batch()
+    if b is None and current_shard() is not None:
+        raise RuntimeError("batch statistics on an H shard need a global_batch over the world "
+                           "(train_step opens both)")
+    n = 1
+    for d in dims:
+        n *= t.shape[d]
+    if b is None:
+        return n
+    return n // t.shape[0] * b.rows * (_h_blocks() if h_axis in dims else 1)
+
+
 def moments(xf: torch.Tensor, dims, h_axis: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """float32 mean and biased variance E[x^2] - E[x]^2 (clamped at 0) of
     float32 ``xf`` over ``dims``, which hold the batch axis 0 (and H, axis
@@ -191,17 +226,10 @@ def moments(xf: torch.Tensor, dims, h_axis: int = 1) -> tuple[torch.Tensor, torc
     are all-reduced in one call and divided by the global count. Inside a
     shard it needs a global batch: a block's own statistics are not the
     map's."""
-    b = _batch()
-    if b is None and current_shard() is not None:
-        raise RuntimeError("batch statistics on an H shard need a global_batch over the world "
-                           "(train_step opens both)")
-    if b is None:
+    n = stat_count(xf, dims, h_axis)
+    if _batch() is None:
         mean = xf.mean(dim=dims)
         return mean, torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
-    n = 1
-    for d in dims:
-        n *= xf.shape[d]
-    n = n // xf.shape[0] * b.rows * (_h_blocks() if h_axis in dims else 1)
     s = global_sum(torch.stack([xf.sum(dim=dims), xf.square().sum(dim=dims)]))
     mean = s[0] / n
     return mean, torch.clamp(s[1] / n - mean.square(), min=0.0)

@@ -65,7 +65,8 @@ def test_two_gloo_ranks_on_the_card_match_one_process(tmp_path):
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build("nat_fwd", "nat_bwd", "rc_dw_gelu", "rc_stats")  # once, before the ranks
+    # once, before the ranks
+    _build.build("nat_fwd", "nat_bwd", "rc_dw_gelu", "rc_stats", "bn_train")
     x, y = _batch()
     torch.save({"x": x, "y": y}, tmp_path / "batch.pt")
     spec = dict(device="cuda", seed=SEED, batch=str(tmp_path / "batch.pt"), dir=str(tmp_path),
