@@ -11,7 +11,7 @@ on a machine with a card (``--device cpu`` runs them on the CPU). Prints
 one JSON line a seed and kind: the cell's compared numbers.
 
 * ``fp8``: the reference with every weight and activation rounded to
-  float8 e4m3 with a per-tensor scale (``reference.lmnet.fp8_round``), the
+  float8 e4m3 with a per-tensor scale (``lmbench.check.fp8_round``), the
   precision below the configuration's bf16.
 * ``half`` (training): the reference's loss taken over the first half of
   each batch alone, the dropout masks drawn for the whole batch.
@@ -30,14 +30,8 @@ sys.path[:0] = [str(HERE)]
 
 import torch  # noqa: E402
 
+import arch  # noqa: E402
 from lmbench import check, inputs  # noqa: E402
-from reference.lmnet import LMNetRef, fp8_round, param_specs, train_steps  # noqa: E402
-
-
-def _weights(config: dict, seed: int, device) -> dict:
-    m = config["model"]
-    return inputs.weights(param_specs(m["num_classes"], m["filters"], m["num_heads"]), seed,
-                          device)
 
 
 def serve_control(config: dict, traffic: dict, seed: int, device) -> dict:
@@ -46,11 +40,11 @@ def serve_control(config: dict, traffic: dict, seed: int, device) -> dict:
     s = inputs.seeds(seed)
     n = 2 * traffic["check_batches"]
     x, _ = inputs.images_and_masks(n, config["image_size"], inputs.generator(s["data"], device),
-                                   device, torch.bfloat16)
-    heads = config["model"]["num_heads"]
-    raw = _weights(config, s["weights"], device)
-    ref = check.reference_logits(LMNetRef(raw, heads), x)
-    low = check.reference_logits(LMNetRef(raw, heads, q=fp8_round), x)
+                                   device, torch.bfloat16, config["model"]["num_classes"])
+    A = arch.load(config)
+    raw = arch.weights(config, s["weights"], device)
+    ref = check.reference_logits(A.reference(config, raw), x)
+    low = check.reference_logits(A.reference(config, raw, q=check.fp8_round), x)
     return {"logit_err": check.logit_err(low, ref)}
 
 
@@ -60,13 +54,14 @@ def open_loop_control(config: dict, traffic: dict, seed: int, device) -> dict:
     from lmbench.cells import centre_margin
 
     s = inputs.seeds(seed)
-    heads = config["model"]["num_heads"]
-    raw = _weights(config, s["weights"], device)
+    A = arch.load(config)
+    raw = arch.weights(config, s["weights"], device)
     x, _ = inputs.images_and_masks(traffic["pool_images"], config["image_size"],
-                                   inputs.generator(s["data"], device), device)
-    centre_margin(raw, x[:2], heads)
-    ref = check.reference_logits(LMNetRef(raw, heads), x)
-    low = check.reference_logits(LMNetRef(raw, heads, q=fp8_round), x)
+                                   inputs.generator(s["data"], device), device,
+                                   classes=config["model"]["num_classes"])
+    centre_margin(config, raw, x[:2])
+    ref = check.reference_logits(A.reference(config, raw), x)
+    low = check.reference_logits(A.reference(config, raw, q=check.fp8_round), x)
     return {"mask_gap": check.mask_gap(low.argmax(dim=-1), ref, check.margin_rms(ref))}
 
 
@@ -75,25 +70,24 @@ def train_control(config: dict, traffic: dict, seed: int, device, kinds) -> dict
     fault (``kinds``) against the float32 reference over the checked
     steps; kind -> numbers."""
     s = inputs.seeds(seed)
-    m, opt = config["model"], traffic["optimizer"]
+    A = arch.load(config)
     B, size = traffic["batch"], config["image_size"]
-    xs, ys = inputs.pool(traffic["check_steps"], B, size, s["data"], device, torch.float32)
+    xs, ys = inputs.pool(traffic["check_steps"], B, size, s["data"], device, torch.float32,
+                         config["model"]["num_classes"])
     batches = list(zip(xs, ys))
 
     def steps(q=None, rows=slice(None)):
         with check.exact_fp32():
-            losses, g, st = train_steps(
-                _weights(config, s["weights"], device), batches,
-                inputs.generator(s["dropout"], device), size, q=q, num_heads=m["num_heads"],
-                filters=m["filters"], epochs=opt["epochs"],
-                steps_per_epoch=opt["steps_per_epoch"], batch_slice=rows)
+            losses, g, st = A.train_steps(
+                config, traffic, arch.weights(config, s["weights"], device), batches,
+                inputs.generator(s["dropout"], device), q=q, batch_slice=rows)
         return {"losses": losses, "grad1": g, "state": st}
 
     ref = steps()
     out = {}
     for kind in kinds:
-        low = steps(q=fp8_round) if kind == "fp8" else steps(rows=slice(0, B // 2))
-        nums = check.train_numbers(_weights(config, s["weights"], device), low, ref)
+        low = steps(q=check.fp8_round) if kind == "fp8" else steps(rows=slice(0, B // 2))
+        nums = check.train_numbers(arch.weights(config, s["weights"], device), low, ref)
         out[kind] = {k: v[0] for k, v in nums.items() if not k.startswith("_")}
         del low
     return out

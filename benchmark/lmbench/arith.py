@@ -2,10 +2,12 @@
 image, and the NAT kernels' least bytes and operations.
 
 The peaks are NVIDIA's data sheet for the H100 SXM (dense, 700 W). The
-model's operations are counted once at set-up on the plain reference
-(``reference/lmnet.py``) by ``torch.utils.flop_counter`` on meta tensors
-(2 a multiply-add, every conv and matrix product) plus NAT analytically,
-so the count does not depend on what implements the model. The NAT bounds
+model's operations are counted by the configuration's architecture
+(``arch/<arch>.py``: ``forward_flops``) on its plain reference, with
+``counted_flops`` (``torch.utils.flop_counter`` on meta tensors: 2 a
+multiply-add, every conv and matrix product) plus what that counter does
+not see, so the count does not depend on what implements the model. The
+NAT bounds (the kernel-3 NAT of four stages that ``nat_stages`` lists)
 count each input byte read once and each output byte written once.
 """
 
@@ -33,20 +35,22 @@ def nat_flops_per_image(size: int, filters) -> float:
     return sum(2 * 18 * h * w * c for h, w, c in nat_stages(size, filters))
 
 
-def model_flops(config: dict, train: bool) -> float:
-    """Operations of one image's forward: the deploy graph (``train``
-    False) or the train-mode graph with its four branch convs a block."""
-    from reference.lmnet import LMNetRef, param_specs
-
-    m = config["model"]
-    size = config["image_size"]
-    p = {name: torch.zeros(shape, device="meta")
-         for name, shape, _, _ in param_specs(m["num_classes"], m["filters"], m["num_heads"])}
-    x = torch.zeros((1, size, size, 3), device="meta")
+def counted_flops(fn) -> float:
+    """The operations of the convs and matrix products that ``fn()`` runs
+    (on meta tensors: nothing is computed), 2 a multiply-add."""
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
-        LMNetRef(p, m["num_heads"]).forward(x, train=train)
-    return float(counter.get_total_flops()) + nat_flops_per_image(size, m["filters"])
+        fn()
+    return float(counter.get_total_flops())
+
+
+def model_flops(config: dict, train: bool) -> float:
+    """Operations of one image's forward: the deploy graph (``train``
+    False) or the train-mode graph, as the configuration's architecture
+    counts them."""
+    import arch
+
+    return arch.load(config).forward_flops(config, train)
 
 
 def nat_fwd_bound_s(batch: int, size: int, filters, heads: int, elem_bytes: int) -> float:

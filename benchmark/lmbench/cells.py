@@ -1,19 +1,22 @@
 """The three kinds of traffic a cell runs, each a window over the port's
-public entry points, and its check against the reference afterwards.
+public entry points, and its check against the reference afterwards. The
+model, its weights and its reference come from the configuration's
+architecture (``arch/__init__.py``).
 
-* ``serve``: chains of ``chain`` batches through ``serve.deploy_forward``
-  on the ``structural_reparam`` of the run's weights, each batch's logits
-  summed on the device, one host read a chain; the rate is every image of
-  the window over the window's seconds. Two rows of every batch (one in
-  each half, drawn from the seed) are kept, and a seeded sample of those
-  batches, the last among them, is held against the reference.
+* ``serve``: chains of ``chain`` batches through the architecture's serving
+  callable on the run's weights, each batch's logits summed on the device,
+  one host read a chain; the rate is every image of the window over the
+  window's seconds. Two rows of every batch (one in each half, drawn from
+  the seed) are kept, and a seeded sample of those batches, the last among
+  them, is held against the reference.
 * ``train``: ``train.train_step`` on a ``create_train_state`` of the
-  run's weights, one host read of the loss a step. Set-up drives the same
-  state through the first ``check_steps`` steps on distinct batches of the
-  pool; the reference follows those. The window continues with that state.
-* ``open_loop``: ``serve.daemon.DynamicBatcher`` around a
-  ``deploy_forward`` closure, requests sent on ``openloop.schedule``'s
-  times; every answered request's masks are held against the reference.
+  architecture's train-mode module with the run's weights, one host read of
+  the loss a step. Set-up drives the same state through the first
+  ``check_steps`` steps on distinct batches of the pool; the reference
+  follows those. The window continues with that state.
+* ``open_loop``: ``serve.daemon.DynamicBatcher`` around the serving
+  callable, requests sent on ``openloop.schedule``'s times; every answered
+  request's masks are held against the reference.
 
 Each returns a ``Result``; ``run.py`` prints it.
 """
@@ -26,9 +29,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+import arch
 from lmbench import check, inputs, openloop
 from lmbench.profile import Tracer, warm
-from reference.lmnet import LMNetRef, param_specs, train_steps
 
 
 @dataclass
@@ -75,9 +78,11 @@ def _free(dev) -> None:
 
 
 def _weights(run: Run, seed: int) -> dict:
-    m = run.config["model"]
-    return inputs.weights(param_specs(m["num_classes"], m["filters"], m["num_heads"]), seed,
-                          run.device)
+    return arch.weights(run.config, seed, run.device)
+
+
+def _classes(run: Run) -> int:
+    return run.config["model"]["num_classes"]
 
 
 def _limit(run: Run, res: Result, name: str, value: float, note: str = "") -> None:
@@ -91,20 +96,8 @@ def _trace_now(run: Run, tracer, t0: float) -> bool:
             and time.perf_counter() - t0 >= run.seconds - run.traffic["trace_seconds"])
 
 
-def _deploy_fn(run: Run, raw: dict):
-    from lmnet_tpu_torch.models import structural_reparam
-    from lmnet_tpu_torch.serve import deploy_forward
-
-    deploy = structural_reparam(raw)
-    opts = run.traffic["deploy"]
-    heads = run.config["model"]["num_heads"]
-    fn = run.faults.get("deploy_forward", deploy_forward)
-
-    def call(x):
-        return fn(deploy, x, num_heads=heads, nat_backend=opts["nat_backend"],
-                  rc_backend=opts["rc_backend"])
-
-    return call
+def _serve_fn(run: Run, raw: dict):
+    return arch.load(run.config).serve_fn(run.config, run.traffic, raw, run.faults)
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +108,9 @@ def serve(run: Run) -> Result:
     B, size, chain = tr["batch"], run.config["image_size"], tr["chain"]
     s = inputs.seeds(run.seed)
     raw = _weights(run, s["weights"])
-    call = _deploy_fn(run, raw)
-    pool_x, _ = inputs.pool(tr["pool_batches"], B, size, s["data"], dev, torch.bfloat16)
+    call = _serve_fn(run, raw)
+    pool_x, _ = inputs.pool(tr["pool_batches"], B, size, s["data"], dev, torch.bfloat16,
+                            _classes(run))
     P = len(pool_x)
     rng = np.random.default_rng(s["sample"])
     res = Result()
@@ -159,8 +153,8 @@ def serve(run: Run) -> Result:
     del call, pool_x, kept, logits
     _free(dev)
     t_ref = time.perf_counter()
-    ref = check.reference_logits(LMNetRef(_weights(run, s["weights"]),
-                                          run.config["model"]["num_heads"]), images)
+    ref = check.reference_logits(arch.load(run.config).reference(
+        run.config, _weights(run, s["weights"])), images)
     _limit(run, res, "logit_err", check.logit_err(prog, ref), f"{len(picks)} batches, "
            f"{prog.shape[0]} images")
     res.lines.append(f"set-up {setup:.3f} s, window {elapsed:.3f} s ({n} batches), reference "
@@ -173,30 +167,30 @@ def serve(run: Run) -> Result:
 
 def train(run: Run) -> Result:
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
-    from lmnet_tpu_torch.models import LMNet
     from lmnet_tpu_torch.train import create_train_state, train_step
 
-    tr, dev, m = run.traffic, run.device, run.config["model"]
+    tr, dev = run.traffic, run.device
     B, size = tr["batch"], run.config["image_size"]
+    A = arch.load(run.config)
     s = inputs.seeds(run.seed)
     raw = _weights(run, s["weights"])
-    model = LMNet(num_classes=m["num_classes"], filters=tuple(m["filters"]),
-                  num_heads=m["num_heads"], dtype=getattr(torch, run.config["dtype"]),
-                  **tr["model"]).to(dev)
+    model = A.train_model(run.config, tr).to(dev)
     model.load_state_dict(raw, strict=True)
     opt = tr["optimizer"]
     state = create_train_state(model, (B, size, size, 3), seed=s["dropout"], device=dev,
                                epochs=opt["epochs"], steps_per_epoch=opt["steps_per_epoch"])
     step_fn = run.faults.get("train_step", train_step)
-    xs, ys = inputs.pool(tr["pool_batches"], B, size, s["data"], dev, torch.float32)
+    kw = A.train_kwargs(run.config)
+    xs, ys = inputs.pool(tr["pool_batches"], B, size, s["data"], dev, torch.float32,
+                         _classes(run))
     P = len(xs)
-    cm0 = ConfusionAccumulator.init(m["num_classes"], dev)
+    cm0 = ConfusionAccumulator.init(_classes(run), dev)
     res = Result()
     K = tr["check_steps"]
     prog = {"losses": []}
     beta1 = state.optimizer.param_groups[0]["betas"][0]
     for i in range(K):
-        _, loss, _ = step_fn(state, xs[i], ys[i], cm0)
+        _, loss, _ = step_fn(state, xs[i], ys[i], cm0, **kw)
         prog["losses"].append(float(loss))
         if i == 0:  # the first gradient, as the optimiser holds it (none: zero)
             prog["grad1"] = {
@@ -216,7 +210,7 @@ def train(run: Run) -> Result:
             res.window["untraced"] = (n * B, time.perf_counter() - t0)
             tracer = Tracer(dev)
         i = K + n
-        _, loss, _ = step_fn(state, xs[i % P], ys[i % P], cm0)
+        _, loss, _ = step_fn(state, xs[i % P], ys[i % P], cm0, **kw)
         losses.append(float(loss))  # the host reads the step's loss
         n += 1
         if time.perf_counter() - t0 >= run.seconds:
@@ -236,10 +230,8 @@ def train(run: Run) -> Result:
     raw = _weights(run, s["weights"])
     t_ref = time.perf_counter()
     with check.exact_fp32():
-        losses_r, grad_r, state_r = train_steps(
-            raw, batches, inputs.generator(s["dropout"], dev), size, num_heads=m["num_heads"],
-            filters=m["filters"], epochs=opt["epochs"],
-            steps_per_epoch=opt["steps_per_epoch"])
+        losses_r, grad_r, state_r = A.train_steps(run.config, tr, raw, batches,
+                                                  inputs.generator(s["dropout"], dev))
     nums = check.train_numbers(raw, prog, {"losses": losses_r, "grad1": grad_r,
                                            "state": state_r})
     for name in ("loss", "grad1", "change", "bn_stats"):
@@ -258,34 +250,34 @@ def train(run: Run) -> Result:
 # ---------------------------------------------------------------------------
 
 
-def centre_margin(raw: dict, images: torch.Tensor, heads: int) -> float:
-    """Move the head's bias so that the reference's mean logit margin
-    between the two classes over ``images`` is zero, so that both classes
-    occur in the masks of a model with random weights; returns the shift."""
-    ref = check.reference_logits(LMNetRef(raw, heads), images)
-    m = float((ref[..., 1] - ref[..., 0]).mean())
+def centre_margin(config: dict, raw: dict, images: torch.Tensor) -> list[float]:
+    """Move the head's bias in ``raw`` by the architecture's ``head_shift``
+    of the reference's logits over ``images``, so that every class occurs in
+    the masks of a model with random weights; returns the shift."""
+    A = arch.load(config)
+    name, shift = A.head_shift(check.reference_logits(A.reference(config, raw), images))
     with torch.no_grad():
-        raw["output_layer.bias"] += torch.tensor([m / 2, -m / 2], device=images.device)
-    return m
+        raw[name] += shift
+    return shift.tolist()
 
 
 def batcher_setup(run: Run, s: dict):
     """An open-loop run's set-up: the weights with the head centred, the
-    pool of host images, a ``DynamicBatcher`` around a ``deploy_forward``
-    closure with every batch size it can form warmed. Returns (weights,
+    pool of host images, a ``DynamicBatcher`` around the serving callable
+    with every batch size it can form warmed. Returns (weights,
     host images, batcher, notes: the head's shift and the seconds spent)."""
     from lmnet_tpu_torch.serve import DynamicBatcher
 
     tr, dev = run.traffic, run.device
-    size, heads = run.config["image_size"], run.config["model"]["num_heads"]
+    size = run.config["image_size"]
     raw = _weights(run, s["weights"])
     imgs, _ = inputs.images_and_masks(tr["pool_images"], size, inputs.generator(s["data"], dev),
-                                      dev)
+                                      dev, classes=_classes(run))
     t = time.perf_counter()
-    shift = centre_margin(raw, imgs[:2], heads)
+    shift = centre_margin(run.config, raw, imgs[:2])
     host = imgs.cpu().numpy()
     t_centre = time.perf_counter() - t
-    batcher = DynamicBatcher(_deploy_fn(run, raw), img_size=size, max_batch=tr["max_batch"],
+    batcher = DynamicBatcher(_serve_fn(run, raw), img_size=size, max_batch=tr["max_batch"],
                              max_wait_ms=tr["max_wait_ms"], dtype=torch.bfloat16, device=dev)
     b = 1
     while b <= tr["max_batch"]:  # every bucket the batcher can form
@@ -336,7 +328,6 @@ def latency_line(out, rate, seconds, counters) -> str:
 
 def open_loop(run: Run) -> Result:
     tr, dev = run.traffic, run.device
-    heads = run.config["model"]["num_heads"]
     s = inputs.seeds(run.seed)
     res = Result()
     raw, host, batcher, notes = batcher_setup(run, s)
@@ -356,7 +347,8 @@ def open_loop(run: Run) -> Result:
                      + f"; set-up {setup:.3f} s, of it {notes}")
     del batcher
     _free(dev)
-    ref = check.reference_logits(LMNetRef(raw, heads), torch.from_numpy(host).to(dev))
+    ref = check.reference_logits(arch.load(run.config).reference(run.config, raw),
+                                 torch.from_numpy(host).to(dev))
     scale = check.margin_rms(ref)
     worst = 0.0
     for i, ans in enumerate(out.answers):

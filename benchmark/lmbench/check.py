@@ -1,6 +1,7 @@
 """The comparisons that decide ``correct``: what the timed path produced
-against the plain reference (``reference/lmnet.py``), run once the window
-has closed.
+against the plain reference of the configuration's architecture
+(``reference/<arch>.py``), run once the window has closed; and the
+rounding the controls put the reference in (``fp8_round``).
 
 Serving: the worst image's relative RMS distance of the served logits from
 the reference's (``logit_err``). Masks: the widest gap by which the
@@ -19,7 +20,9 @@ import contextlib
 
 import torch
 
-from reference.lmnet import is_param
+from reference.train import is_param
+
+FP8_MAX = 448.0  # largest finite float8 e4m3
 
 
 @contextlib.contextmanager
@@ -32,6 +35,16 @@ def exact_fp32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = mm, cd
+
+
+def fp8_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to float8 e4m3 with one scale for the tensor (its
+    absolute maximum at 448), back in t's dtype; the gradient passes
+    through unrounded."""
+    with torch.no_grad():
+        s = t.detach().abs().amax().float().clamp_min(1e-30) / FP8_MAX
+        r = ((t.detach() / s).to(torch.float8_e4m3fn).to(t.dtype) * s).to(t.dtype)
+    return t + (r - t).detach()
 
 
 CHUNK = 8  # images a reference forward: a 512^2 float32 chunk stays under ~10 GiB
@@ -103,7 +116,8 @@ def train_numbers(p0: dict, prog: dict, ref: dict) -> dict:
     """The training comparison. Each of ``prog`` and ``ref`` holds 'losses'
     (the checked steps'), 'grad1' (the first gradient by parameter) and
     'state' (parameters and running statistics after the checked steps);
-    ``p0`` the state before. Leaves whose first reference gradient is under
+    ``p0`` the state before; ``reference.train.is_param`` tells a trained
+    leaf from a running statistic. Leaves whose first reference gradient is under
     a thousandth of the median leaf's (a bias before a BatchNorm, a key's
     bias: nought but for round-off) are left out of the first gradient and
     of the change.

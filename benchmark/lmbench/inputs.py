@@ -1,5 +1,6 @@
 """What a run feeds both sides, made from ``--seed``: the raw weights of the
-model's state dict, images and blob masks.
+model's state dict, images and their label maps (blob masks for two
+classes, bands of a smooth field for more).
 
 Everything is drawn on the run's device by a ``torch.Generator`` there, in
 a few large calls, so that set-up stays short and the same seed gives the
@@ -14,7 +15,7 @@ import torch.nn.functional as F
 
 ROLES = ("weights", "data", "dropout", "sample", "traffic")
 
-# (low, high) of each kind of entry (``reference.lmnet.param_specs``); a
+# (low, high) of each kind of entry (an architecture's ``param_specs``); a
 # conv or linear weight and its bias take +-1/sqrt(fan_in) (torch's
 # family), the SE convs +-sqrt(6/fan_in) (kaiming's range), the attention
 # linears a std of 0.02; BatchNorm and LayerNorm affines, running
@@ -38,8 +39,8 @@ def generator(seed: int, device) -> torch.Generator:
 
 
 def weights(specs, seed: int, device) -> dict[str, torch.Tensor]:
-    """float32 state dict of ``specs`` ((name, shape, kind, fan_in), as
-    ``reference.lmnet.param_specs`` gives them): one uniform draw for all
+    """float32 state dict of ``specs`` ((name, shape, kind, fan_in), as an
+    architecture's ``param_specs`` gives them): one uniform draw for all
     entries, scaled into each entry's range; the entries are views of one
     buffer."""
     lo, hi, sizes = [], [], []
@@ -68,25 +69,41 @@ def _fields(n: int, channels: int, size: int, g: torch.Generator, device) -> tor
     return F.interpolate(low, size=(size, size), mode="bilinear", align_corners=False)
 
 
+def _bands(field: torch.Tensor, classes: int) -> torch.Tensor:
+    """Label maps of ``classes`` classes from smooth fields (n, H, W): class
+    k where the field lies between the batch's k/classes and
+    (k+1)/classes quantiles, so that every class covers about as many of
+    the batch's pixels and occurs in it."""
+    flat = field.flatten().sort().values
+    cuts = flat[torch.arange(1, classes, device=field.device) * flat.numel() // classes]
+    return torch.bucketize(field, cuts, right=True).to(torch.int32)
+
+
 def images_and_masks(n: int, size: int, g: torch.Generator, device,
-                     dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+                     dtype=torch.float32, classes: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
     """n distinct normalised NHWC images and their (n, size, size) int32
-    blob masks: a smooth field thresholded at a level drawn per image
-    (0.35 to 0.75, so the foreground share varies), the images a smooth
-    colour field plus the mask and pixel noise, each normalised to mean 0
-    and std 1."""
+    label maps. Two classes: blob masks, a smooth field thresholded at a
+    level drawn per image (0.35 to 0.75, so the foreground share varies);
+    more: the field cut into ``classes`` bands at the batch's quantiles
+    (``_bands``). The images are a smooth colour field plus the label
+    (scaled to 0 .. 0.5) and pixel noise, each normalised to mean 0 and
+    std 1."""
     mask_field = _fields(n, 1, size, g, device)[:, 0]
-    level = 0.35 + 0.4 * torch.rand((n, 1, 1), generator=g, device=device)
-    masks = (mask_field > level).to(torch.int32)
-    img = _fields(n, 3, size, g, device) + 0.5 * masks[:, None].float()
+    if classes == 2:
+        level = 0.35 + 0.4 * torch.rand((n, 1, 1), generator=g, device=device)
+        masks = (mask_field > level).to(torch.int32)
+    else:
+        masks = _bands(mask_field, classes)
+    img = _fields(n, 3, size, g, device) + 0.5 / (classes - 1) * masks[:, None].float()
     img = img + 0.1 * torch.randn((n, 3, size, size), generator=g, device=device)
     img = (img - img.mean(dim=(1, 2, 3), keepdim=True)) / img.std(dim=(1, 2, 3), keepdim=True)
     return img.permute(0, 2, 3, 1).contiguous().to(dtype), masks
 
 
-def pool(batches: int, batch: int, size: int, seed: int, device, dtype):
-    """``batches`` batches of ``batch`` distinct images and masks, one draw
-    at a time, so that a large pool never holds a float32 copy whole."""
+def pool(batches: int, batch: int, size: int, seed: int, device, dtype, classes: int = 2):
+    """``batches`` batches of ``batch`` distinct images and label maps of
+    ``classes`` classes, one draw at a time, so that a large pool never
+    holds a float32 copy whole."""
     g = generator(seed, device)
-    out = [images_and_masks(batch, size, g, device, dtype) for _ in range(batches)]
+    out = [images_and_masks(batch, size, g, device, dtype, classes) for _ in range(batches)]
     return [x for x, _ in out], [y for _, y in out]

@@ -19,6 +19,7 @@ class Context:
     window: dict  # images, seconds, untraced (images, seconds), batch, ...
     counters: dict = field(default_factory=dict)
     trace: object = None  # profile.Trace of the traced window, or None
+    traffic: dict = field(default_factory=dict)  # the cell's traffic mix
 
     def traced_images(self) -> int:
         return self.window["images"] - self.window["untraced"][0]

@@ -13,18 +13,13 @@ how often, comes from the cell's traffic (``model.rc_train_backend``,
 kernels, 'fused' only the expand and skip BatchNorms (B6 takes the branches'
 statistics); ``rc_remat`` True runs a block's BatchNorms forward twice (the
 forward and the recompute in the backward), 'branches' the four branch ones
-alone, False none; the skips' run once. The traffic is found from ``run.py``'s
-``--workload`` argument in ``sys.argv``, so the reader works inside
-``run.py``'s own process only. None where the kernels did not run (a program
-without them), or for a traffic this reader cannot count."""
+alone, False none; the skips' run once. The traffic is the cell's
+(``ctx.traffic``). None where the kernels did not run (a program without
+them), or for a traffic this reader cannot count."""
 
 from __future__ import annotations
 
-import argparse
 import functools
-import json
-import sys
-from pathlib import Path
 
 import torch
 
@@ -34,7 +29,6 @@ LAYER = "train-mode BatchNorm kernels: ops/bn_train.py, csrc/bn_train.cu"
 UNIT = "%"
 MOVES = "train_img_s"
 SOURCE = "device_trace"
-ROOT = Path(__file__).resolve().parents[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,18 +54,6 @@ def bn_elements(size: int, filters: tuple, heads: int, classes: int) -> tuple[in
     return counts["expand"], counts["branch"], counts["skip"]
 
 
-def _traffic():
-    """The running cell's traffic mix (``run.py``'s ``--workload``), or None."""
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--workload")
-    name = ap.parse_known_args(sys.argv[1:])[0].workload
-    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cell = next((w for w in spec["workloads"] if w["name"] == name), None)
-    if cell is None:
-        return None
-    return json.loads((ROOT / "benchmark" / "traffic" / f"{cell['traffic']}.json").read_text())
-
-
 # forwards a step of (expand, branch) BatchNorms by rc_remat
 REMAT_FORWARDS = {True: (2, 2), "full": (2, 2), "branches": (1, 2), False: (1, 1)}
 KERNEL_BACKENDS = ("auto", "xla", "packed", "fused")
@@ -91,10 +73,9 @@ def bytes_per_image(config: dict, remat, backend: str) -> float:
 
 
 def read(ctx):
-    traffic = _traffic()
-    if traffic is None or ctx.trace is None:
+    if ctx.trace is None:
         return None
-    model = traffic.get("model", {})
+    model = ctx.traffic.get("model", {})
     remat, backend = model.get("rc_remat", True), model.get("rc_train_backend", "auto")
     if remat not in REMAT_FORWARDS or backend not in KERNEL_BACKENDS:
         return None

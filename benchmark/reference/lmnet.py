@@ -18,36 +18,26 @@ convs with their BatchNorms.
 
 ``q`` is a rounding applied to every weight at its use and to every
 activation an op produces (identity for the float32 reference). The
-benchmark's control passes ``fp8_round``, a per-tensor scaled e4m3 rounding
-with a straight-through gradient: the reference computed in the precision
-below the port's bf16.
+benchmark's control passes ``lmbench.check.fp8_round``, a per-tensor scaled
+e4m3 rounding with a straight-through gradient: the reference computed in
+the precision below the port's bf16. The loss, AdamW and the schedule are
+``reference/train.py``'s, which every architecture shares.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from reference import train as recipe
+
 BN_EPS = 1e-5
 LN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # running = 0.9 running + 0.1 batch (biased variance)
 DROPOUT = 0.1
 BRANCHES = (("large", 5, 5), ("square", 3, 3), ("ver", 3, 1), ("hor", 1, 3))
-FP8_MAX = 448.0  # largest finite float8 e4m3
-
-
-def fp8_round(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 with one scale for the tensor (its
-    absolute maximum at 448), back in t's dtype; the gradient passes
-    through unrounded."""
-    with torch.no_grad():
-        s = t.detach().abs().amax().float().clamp_min(1e-30) / FP8_MAX
-        r = ((t.detach() / s).to(torch.float8_e4m3fn).to(t.dtype) * s).to(t.dtype)
-    return t + (r - t).detach()
 
 
 def _identity(t: torch.Tensor) -> torch.Tensor:
@@ -273,7 +263,8 @@ class LMNetRef:
     # -- blocks -----------------------------------------------------------
     def rc(self, x, name, train):
         """One ReparamConv block; in train mode returns (out, its five
-        BatchNorms' statistics), else out."""
+        BatchNorms' statistics), else out. The running statistics move
+        toward the biased variance."""
         if not train:
             e = self.act(F.hardswish, self.bn(self.conv(x, f"{name}.expand_conv.0"),
                                               f"{name}.expand_conv.1", False))
@@ -399,93 +390,24 @@ def draw_masks(batch: int, size: int, generator: torch.Generator, device,
 
 
 # ---------------------------------------------------------------------------
-# the loss and the optimiser
-
-
-def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, weight=(1.0, 4.0),
-                      smoothing: float = 0.001, smooth: float = 1e-5) -> torch.Tensor:
-    """Class-weighted, label-smoothed cross-entropy (torch's weighted mean:
-    the sum of per-pixel losses over the sum of the target classes'
-    weights) plus the class-weighted square-denominator Dice over the
-    batch."""
-    C = logits.shape[-1]
-    w = torch.tensor(weight, dtype=torch.float32, device=logits.device)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    onehot = F.one_hot(labels.long(), C).float()
-    target = (1.0 - smoothing) * onehot + smoothing / C
-    ce = -(target * w * logp).sum() / (onehot * w).sum()
-    probs = logp.exp()
-    inter = (probs * onehot).sum(dim=(0, 1, 2))
-    dice = (2 * inter + smooth) / (probs.square().sum(dim=(0, 1, 2))
-                                   + onehot.sum(dim=(0, 1, 2)) + smooth)
-    return ce + (w * (1.0 - dice)).sum() / C
-
-
-def cosine_lr(step: int, base: float = 1e-3, epochs: int = 200, steps_per_epoch: int = 100,
-              eta_min: float = 1e-6) -> float:
-    """Cosine annealing stepped once an epoch, at global step ``step``."""
-    epoch = min(step // steps_per_epoch, epochs)
-    return eta_min + (base - eta_min) * 0.5 * (1.0 + math.cos(math.pi * epoch / epochs))
-
-
-class AdamW:
-    """AdamW (betas 0.9 / 0.999, eps 1e-8, decoupled weight decay) on a dict
-    of float32 tensors."""
-
-    def __init__(self, params: dict, weight_decay: float = 1e-4, betas=(0.9, 0.999),
-                 eps: float = 1e-8):
-        self.params, self.wd, self.betas, self.eps = params, weight_decay, betas, eps
-        self.m = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.v = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.t = 0
-
-    @torch.no_grad()
-    def step(self, grads: dict, lr: float) -> None:
-        self.t += 1
-        b1, b2 = self.betas
-        c1, c2 = 1 - b1 ** self.t, 1 - b2 ** self.t
-        for k, p in self.params.items():
-            g = grads[k]
-            self.m[k].mul_(b1).add_(g, alpha=1 - b1)
-            self.v[k].mul_(b2).addcmul_(g, g, value=1 - b2)
-            p.mul_(1 - lr * self.wd)
-            p.sub_(lr / c1 * self.m[k] / (self.v[k].sqrt() / math.sqrt(c2) + self.eps))
-
-
-def is_param(name: str) -> bool:
-    """A trained leaf (a BatchNorm's running statistics are not)."""
-    return not name.endswith(("running_mean", "running_var"))
+# training
 
 
 def train_steps(p: dict, batches, generator: torch.Generator, size: int,
                 q: Callable | None = None, num_heads: int = 12, filters=(12, 24, 48, 96, 192),
                 epochs: int = 200, steps_per_epoch: int = 100, batch_slice=slice(None)):
-    """Train the float32 copy of ``p`` for one step on each (images, labels)
-    of ``batches``: the train-mode forward (every ReparamConv and NAT block
-    recomputed in the backward, so that B=128 fits) with dropout masks from
-    ``generator``, the loss, its gradient, AdamW at the cosine schedule's
-    rate, the running statistics moved toward the batch's. ``batch_slice``
-    takes those rows of each batch (the masks are drawn for the whole
-    batch). Returns (the losses, the first step's gradients, the state
-    after the last step), all on p's device."""
-    state = {k: v.detach().clone().float() for k, v in p.items()}
-    params = {k: v.requires_grad_() for k, v in state.items() if is_param(k)}
-    opt = AdamW(params, weight_decay=1e-4)
-    losses, first = [], None
-    for step, (x, y) in enumerate(batches):
+    """``reference.train.train_steps`` with LM-Net's train-mode forward:
+    every ReparamConv and NAT block recomputed in the backward, so that
+    B=128 fits, and dropout masks from ``generator`` drawn for the whole
+    batch before ``batch_slice`` takes its rows; the loss's class weights
+    (1, 4). Returns (the losses, the first step's gradients, the state after
+    the last step)."""
+
+    def forward(state, x):
         masks = draw_masks(x.shape[0], size, generator, x.device, filters)
         masks = {k: tuple(m[batch_slice] for m in v) for k, v in masks.items()}
         model = LMNetRef(state, num_heads, q, remat=True)
-        loss = segmentation_loss(model.forward(x[batch_slice], True, masks), y[batch_slice])
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        losses.append(float(loss.detach()))
-        if first is None:
-            first = {k: g.detach().clone() for k, g in grads.items()}
-        opt.step(grads, cosine_lr(step, epochs=epochs, steps_per_epoch=steps_per_epoch))
-        with torch.no_grad():
-            for name, mean, var in model.stats:
-                rm, rv = state[f"{name}.running_mean"], state[f"{name}.running_var"]
-                rm.mul_(1 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
-                rv.mul_(1 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
-        del model, grads, loss
-    return losses, first, {k: v.detach() for k, v in state.items()}
+        return model.forward(x[batch_slice], True, masks), model.stats
+
+    return recipe.train_steps(p, batches, forward, (1.0, 4.0), epochs, steps_per_epoch,
+                              batch_slice)

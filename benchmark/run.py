@@ -129,7 +129,8 @@ def report(cell: dict, res, trace: int, kind: str) -> int:
               "memory_peak_bytes": res.memory_peak}
     out = {}
     if trace:
-        ctx = readers.Context(cell["config"], res.window, res.counters, res.trace)
+        ctx = readers.Context(cell["config"], res.window, res.counters, res.trace,
+                              cell["traffic"])
         metrics = {}
         for m in cell["per_layer"]:
             value = metric_reader(m["name"]).read(ctx)

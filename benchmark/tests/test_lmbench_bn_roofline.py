@@ -44,13 +44,30 @@ def test_bytes_count_the_batchnorms_the_backend_sends_through_the_kernels(remat,
 
 
 @pytest.mark.parametrize("model", [{"rc_train_backend": "another"}, {"rc_remat": "some"}])
-def test_a_traffic_it_cannot_count_reads_none(monkeypatch, model):
+def test_a_traffic_it_cannot_count_reads_none(model):
     m = _reader()
-    monkeypatch.setattr(m, "_traffic", lambda: {"model": model})
-    assert m.read(types.SimpleNamespace(config=CONFIG, trace=object())) is None
+    assert m.read(types.SimpleNamespace(config=CONFIG, trace=object(),
+                                        traffic={"model": model})) is None
 
 
-def test_no_trace_reads_none(monkeypatch):
+def test_no_trace_reads_none():
     m = _reader()
-    monkeypatch.setattr(m, "_traffic", lambda: {"model": {}})
-    assert m.read(types.SimpleNamespace(config=CONFIG, trace=None)) is None
+    assert m.read(types.SimpleNamespace(config=CONFIG, trace=None, traffic={"model": {}})) is None
+
+
+def test_the_traffic_comes_from_the_context(monkeypatch):
+    """The cell's traffic as ``run.py`` hands it over in ``readers.Context``,
+    not from the process's arguments: 'fused' counts fewer bytes than 'xla'
+    for the same kernel time, so it reads a lower share."""
+    from lmbench import readers
+
+    m = _reader()
+    monkeypatch.setattr("sys.argv", ["run.py", "--workload", "no-such-cell"])
+    seen = []
+    monkeypatch.setattr(readers, "roofline", lambda ctx, k, bound: seen.append(bound(1)) or 1.0)
+    for backend in ("xla", "fused"):
+        traffic = {"model": {"rc_remat": True, "rc_train_backend": backend}}
+        ctx = readers.Context(CONFIG, {}, trace=object(), traffic=traffic)
+        assert m.read(ctx) == 1.0
+    assert seen[0] == m.bytes_per_image(CONFIG, True, "xla") / 3.35e12
+    assert seen[1] == m.bytes_per_image(CONFIG, True, "fused") / 3.35e12 < seen[0]
