@@ -283,7 +283,9 @@ Phases, each printing a line, any failure raising (exit code != 0):
      y, mean, var, dx, dgamma and dbeta in bf16 against the plain version
      (the tolerances of tests/test_torch_bn_train.py), at B=2 and again at
      B=128, the train cell's size, where each thread of the statistics
-     kernels walks its periods four at a time; at B=128
+     kernels walks its periods four at a time, and at SegFormer-B5's head
+     (B=8, 256^2, 768 channels: 96 vectors a period), its launches
+     counted; at B=128
      each shape's forward and forward + backward timed as CUDA graphs
      (device time) for the kernels, the plain version and F.batch_norm (the
      one-call yardstick,
@@ -4528,6 +4530,74 @@ def _bn_graph_ms(fn, x, dy, w, b) -> tuple[float, float]:
     return f_ms, graph_ms(fwd_bwd, iters=10, calls=4)
 
 
+BN_EPS = 1e-5
+# SegFormer-B5's head at 1024^2, B=8: the fused 768 channels over c1's 256^2
+# grid (96 16-byte vectors a period, against at most 24 at LM-Net's widths)
+BN_HEAD = (8, 256, 768)
+
+
+def _bn_kernel(x, w, b):
+    from lmnet_tpu_torch.ops.bn_train import batch_norm_train
+
+    return batch_norm_train(x, w, b, BN_EPS)[0]
+
+
+def _bn_plain(x, w, b):
+    from lmnet_tpu_torch.ops.bn_train import batch_norm_train_plain
+
+    return batch_norm_train_plain(x, w, b, BN_EPS)[0]
+
+
+def bn_against_plain(x, dy, w, b, where) -> float:
+    """The BatchNorm kernels' statistics, y, dx, dgamma and dbeta against the
+    plain version's on the same bf16 tensors (phase 25's tolerances); the
+    worst |y|, |dx| error."""
+    from lmnet_tpu_torch.ops.bn_train import batch_norm_train, batch_norm_train_plain
+
+    got = _bn_fwd_bwd(_bn_kernel, x, dy, w, b)
+    want = _bn_fwd_bwd(_bn_plain, x, dy, w, b)
+    with torch.no_grad():
+        _, mean, var = batch_norm_train(x, w, b, BN_EPS)
+        _, wmean, wvar = batch_norm_train_plain(x, w, b, BN_EPS)
+    ms = x.float().square().mean((0, 1, 2))
+    check(bool(((mean - wmean).abs() <= 1e-5 * ms.sqrt()).all())
+          and bool(((var - wvar).abs() <= 1e-5 * ms).all()),
+          f"phase 25: bn_train statistics {where}")
+    worst = 0.0
+    for name, gt, wt in zip(("y", "dx"), got[:2], want[:2]):
+        err = (gt.float() - wt.float()).abs()
+        worst = max(worst, err.max().item())
+        check(bool((err <= 2**-7 * wt.float().abs() + 1e-3).all()),
+              f"phase 25: bn_train {name} {where}: {err.max().item()}")
+    for name, gt, wt in zip(("dgamma", "dbeta"), got[2:], want[2:]):
+        err = (gt - wt).abs().max().item()
+        # the same bf16 dy and x on both sides: float32 sums of B H^2
+        # products in another order, within 1e-4 of the largest entry
+        check(err <= 1e-4 * wt.abs().max().item(),
+              f"phase 25: bn_train {name} {where}: {err}")
+    return worst
+
+
+def bn_head_check(dev) -> tuple[float, tuple[int, int]]:
+    """Phase 25 at SegFormer-B5's head (``BN_HEAD``, bf16): the kernels
+    against the plain version, forward and backward. Returns the worst
+    |y|, |dx| error and the (forward, backward) launches, which must be
+    the check's own (2, 1): the kernels ran, nothing gave way to another
+    composition."""
+    from lmnet_tpu_torch.ops.bn_train import batch_norm_train, batch_norm_train_backward
+
+    B, H, C = BN_HEAD
+    before = (batch_norm_train.launches, batch_norm_train_backward.launches)
+    worst = bn_against_plain(*_bn_case(B, H, C, torch.bfloat16, dev, seed=2),
+                             f"at SegFormer-B5's head B={B} H={H} C={C}")
+    torch.cuda.synchronize()
+    launches = (batch_norm_train.launches - before[0],
+                batch_norm_train_backward.launches - before[1])
+    check(launches == (2, 1), f"phase 25: bn_train launches at SegFormer-B5's head {launches}")
+    torch.cuda.empty_cache()
+    return worst, launches
+
+
 def phase_bn_train(dev, card_line) -> dict:
     """Phase 25: the train-mode BatchNorm kernels against the plain version
     and timed at the train cell's shapes (see the module docstring)."""
@@ -4535,56 +4605,24 @@ def phase_bn_train(dev, card_line) -> dict:
 
     from lmnet_tpu_torch.metrics import ConfusionAccumulator
     from lmnet_tpu_torch.models import LMNet
-    from lmnet_tpu_torch.ops.bn_train import (
-        batch_norm_train,
-        batch_norm_train_backward,
-        batch_norm_train_plain,
-    )
+    from lmnet_tpu_torch.ops.bn_train import batch_norm_train, batch_norm_train_backward
     from lmnet_tpu_torch.train import create_train_state, train_step
-
-    eps = 1e-5
-
-    def kernel(x, w, b):
-        return batch_norm_train(x, w, b, eps)[0]
-
-    def plain(x, w, b):
-        return batch_norm_train_plain(x, w, b, eps)[0]
 
     def library(x, w, b):  # F.batch_norm on the NCHW view (channels_last), training
         return F.batch_norm(x.permute(0, 3, 1, 2), None, None, w, b, True, 0.1,
-                            eps).permute(0, 2, 3, 1)
+                            BN_EPS).permute(0, 2, 3, 1)
 
-    def against_plain(x, dy, w, b, where) -> float:
-        """The kernels' statistics, y, dx, dgamma and dbeta against the plain
-        version's on the same bf16 tensors; the worst |y|, |dx| error."""
-        got = _bn_fwd_bwd(kernel, x, dy, w, b)
-        want = _bn_fwd_bwd(plain, x, dy, w, b)
-        with torch.no_grad():
-            _, mean, var = batch_norm_train(x, w, b, eps)
-            _, wmean, wvar = batch_norm_train_plain(x, w, b, eps)
-        ms = x.float().square().mean((0, 1, 2))
-        check(bool(((mean - wmean).abs() <= 1e-5 * ms.sqrt()).all())
-              and bool(((var - wvar).abs() <= 1e-5 * ms).all()),
-              f"phase 25: bn_train statistics {where}")
-        worst = 0.0
-        for name, gt, wt in zip(("y", "dx"), got[:2], want[:2]):
-            err = (gt.float() - wt.float()).abs()
-            worst = max(worst, err.max().item())
-            check(bool((err <= 2**-7 * wt.float().abs() + 1e-3).all()),
-                  f"phase 25: bn_train {name} {where}: {err.max().item()}")
-        for name, gt, wt in zip(("dgamma", "dbeta"), got[2:], want[2:]):
-            err = (gt - wt).abs().max().item()
-            # the same bf16 dy and x on both sides: float32 sums of B H^2
-            # products in another order, within 1e-4 of the largest entry
-            check(err <= 1e-4 * wt.abs().max().item(),
-                  f"phase 25: bn_train {name} {where}: {err}")
-        return worst
-
-    worst = max(against_plain(*_bn_case(2, H, C, torch.bfloat16, dev), f"at B=2 H={H} C={C}")
+    worst = max(bn_against_plain(*_bn_case(2, H, C, torch.bfloat16, dev), f"at B=2 H={H} C={C}")
                 for H, C, _, _ in BN_SHAPES)
     print(f"phase 25: bn_train against the plain version at the 8 BatchNorm shapes of the 256^2 "
           f"step (B=2, bf16): statistics, y, dx, dgamma, dbeta within tolerance; worst |y|, "
           f"|dx| error {worst:.3g}")
+    worst_h, head_launches = bn_head_check(dev)
+    worst = max(worst, worst_h)
+    print(f"phase 25: bn_train against the plain version at SegFormer-B5's head (B={BN_HEAD[0]}, "
+          f"{BN_HEAD[1]}^2, C={BN_HEAD[2]}, bf16): statistics, y, dx, dgamma, dbeta within "
+          f"tolerance; worst |y|, |dx| error {worst_h:.3g}; {head_launches[0]} forwards, "
+          f"{head_launches[1]} backward launched")
 
     work = Work()
     step = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
@@ -4594,12 +4632,12 @@ def phase_bn_train(dev, card_line) -> dict:
         x, dy, w, b = _bn_case(BN_BATCH, H, C, torch.bfloat16, dev, seed=1)
         # the train cell's size, where every thread of the statistics
         # kernels walks its periods four at a time
-        worst_b = max(worst_b, against_plain(x, dy, w, b, f"at B={BN_BATCH} H={H} C={C}"))
+        worst_b = max(worst_b, bn_against_plain(x, dy, w, b, f"at B={BN_BATCH} H={H} C={C}"))
         torch.cuda.empty_cache()
         nbytes = x.numel() * x.element_size()
         work.add(count * (nfwd * 2 * nbytes + 3 * nbytes), count * (nfwd * 4 + 8) * x.numel())
         row = {"H": H, "C": C, "forwards": nfwd, "bns": count}
-        for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+        for name, fn in (("kernel", _bn_kernel), ("plain", _bn_plain), ("library", library)):
             f_ms, fb_ms = _bn_graph_ms(fn, x, dy, w, b)
             row[name] = {"fwd_ms": round(f_ms, 4), "fwd_bwd_ms": round(fb_ms, 4)}
             step[name] += count * ((nfwd - 1) * f_ms + fb_ms)
@@ -4633,7 +4671,7 @@ def phase_bn_train(dev, card_line) -> dict:
     del model, state
     return {"max_abs_err": worst, "ms": step["kernel"], "plain_ms": step["plain"],
             "library_ms": step["library"], "work": work, "shapes": shapes,
-            "launches": {"train_step": sum(launches)}}
+            "launches": {"train_step": sum(launches), "segformer_head": sum(head_launches)}}
 
 
 def ptxas_report(log: str) -> list[str]:

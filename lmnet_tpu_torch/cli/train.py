@@ -4,7 +4,12 @@ Counterpart of ``lmnet_tpu/cli/train.py``, with the same flags, defaults,
 modes and files, plus ``--device`` (default ``cuda``; ``cpu`` runs on the
 CPU, nothing falls back to it on its own) and ``--rc_train_backend`` (the
 model's ``rc_train_backend``, a field of JAX's ``LMNet`` that its CLI does
-not expose; 'fused' trains through B6 and B5).
+not expose; 'fused' trains through B6 and B5) and ``--arch`` (``lmnet``, the
+default, or ``segformer-b5``: ``models/segformer.py::SegFormer`` at MiT-B5's
+widths with ``--num_classes`` classes, trained by the same loop; the
+LM-Net-only flags ``--filters``, ``--num_heads``, ``--rc_remat`` and
+``--rc_train_backend`` do not apply to it, and ``--test --serve`` and
+``--export``, which run LM-Net's deploy graph, refuse it).
 
 Modes:
   (default)        5-fold training loop (k_fold) or single fold
@@ -65,6 +70,9 @@ import random
 
 import numpy as np
 import torch
+
+
+ARCHS = ("lmnet", "segformer-b5")
 
 
 def set_seed(seed: int = 42) -> None:
@@ -181,6 +189,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the train-mode ReparamConv branch graph (LMNet's "
                         "rc_train_backend): 'auto'/'xla' the plain branches, "
                         "'fused' the B6 and B5 kernels, 'packed' one grouped conv")
+    p.add_argument("--arch", type=str, default="lmnet", choices=ARCHS,
+                   help="the model: LM-Net, or SegFormer-B5 (MiT-B5 and the all-MLP head)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train and evaluate on (default the "
                         "card; 'cpu' to run on the CPU)")
@@ -284,8 +294,24 @@ def _device(args) -> torch.device:
     return device
 
 
+def build_model(args) -> torch.nn.Module:
+    """The ``--arch`` model, its weights drawn from ``--seed``."""
+    from lmnet_tpu_torch.models import LMNet, SegFormer
+
+    common = dict(num_classes=args.num_classes, generator=torch.Generator().manual_seed(args.seed),
+                  dtype=torch.bfloat16 if args.apm else None)
+    if args.arch == "segformer-b5":
+        return SegFormer(**common)
+    model_kw = {}
+    if args.filters:
+        model_kw["filters"] = tuple(int(c) for c in args.filters.split(","))
+    if args.num_heads:
+        model_kw["num_heads"] = args.num_heads
+    return LMNet(rc_remat=args.rc_remat, rc_train_backend=args.rc_train_backend, **common,
+                 **model_kw)
+
+
 def main_single(fold: int, args) -> dict:
-    from lmnet_tpu_torch.models import LMNet
     from lmnet_tpu_torch.parallel.dist_utils import (
         get_world_size,
         host_count,
@@ -321,19 +347,7 @@ def main_single(fold: int, args) -> dict:
                              f"{n_data}-rank data axis" + (" of a node" if hosts > 1 else "")
                              + " under --distributed")
 
-    model_kw = {}
-    if args.filters:
-        model_kw["filters"] = tuple(int(c) for c in args.filters.split(","))
-    if args.num_heads:
-        model_kw["num_heads"] = args.num_heads
-    model = LMNet(
-        num_classes=args.num_classes,
-        generator=torch.Generator().manual_seed(args.seed),
-        dtype=torch.bfloat16 if args.apm else None,
-        rc_remat=args.rc_remat,
-        rc_train_backend=args.rc_train_backend,
-        **model_kw,
-    )
+    model = build_model(args)
     state = create_train_state(
         model, (args.batch_size, args.img_size, args.img_size, 3), seed=args.seed,
         device=device, base_lr=args.lr, weight_decay=args.weight_decay,
@@ -542,6 +556,9 @@ def main(argv=None) -> None:
         if dist_utils.is_main_process():
             plot_curves(args)
         return
+    if args.arch != "lmnet" and (args.export or args.serve):
+        raise SystemExit(f"--export and --test --serve run LM-Net's deploy graph; --arch "
+                         f"{args.arch} has none")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; pass --device cpu "
                          "to run on the CPU")

@@ -87,9 +87,11 @@ def conv_nhwc(
     stride: int = 1,
     groups: int = 1,
     slab: int = 0,
+    padding: int | None = None,
 ) -> torch.Tensor:
-    """Conv of NHWC ``x`` with an OIHW ``weight``, torch k//2 padding. The
-    weights are cast to the activation dtype.
+    """Conv of NHWC ``x`` with an OIHW ``weight``, torch k//2 padding (or
+    ``padding`` on every side where given). The weights are cast to the
+    activation dtype.
 
     Inside a shard ``x`` is this rank's rows: the conv takes kh//2 rows of
     each neighbour (at stride 2 only the row above, since every block
@@ -97,7 +99,7 @@ def conv_nhwc(
     of the output. ``slab``: ``x`` already carries ``slab`` >= kh//2
     exchanged rows above and below."""
     kh, kw = weight.shape[2], weight.shape[3]
-    ph = kh // 2
+    ph, pw = (kh // 2, kw // 2) if padding is None else (padding, padding)
     if slab:
         x, ph = x[:, slab - ph:x.shape[1] - slab + ph], 0
     elif current_shard() is not None:
@@ -105,7 +107,7 @@ def conv_nhwc(
     y = F.conv2d(
         x.permute(0, 3, 1, 2), weight.to(x.dtype),
         None if bias is None else bias.to(x.dtype),
-        stride, (ph, kw // 2), 1, groups,
+        stride, (ph, pw), 1, groups,
     )
     return y.permute(0, 2, 3, 1)
 
@@ -115,17 +117,20 @@ def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 
 class Conv(nn.Module):
-    """``nn.Conv2d``'s parameters applied to NHWC tensors.
+    """``nn.Conv2d``'s parameters applied to NHWC tensors (``padding``:
+    ``conv_nhwc``'s).
 
     ``init``: 'torch' (kaiming-uniform fan-in weight and bias) or
     'kaiming_normal' (fan-in, gain 2; zero bias), the SE convs' family.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size=(3, 3), stride: int = 1,
-                 groups: int = 1, bias: bool = True, init: str = "torch"):
+                 groups: int = 1, bias: bool = True, init: str = "torch",
+                 padding: int | None = None):
         super().__init__()
         kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
         self.stride = stride
+        self.padding = padding
         self.groups = groups
         self.init = init
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
@@ -144,7 +149,7 @@ class Conv(nn.Module):
             self.bias.uniform_(-bound, bound, generator=g)
 
     def forward(self, x, slab: int = 0):
-        return conv_nhwc(x, self.weight, self.bias, self.stride, self.groups, slab)
+        return conv_nhwc(x, self.weight, self.bias, self.stride, self.groups, slab, self.padding)
 
 
 class Dense(nn.Module):
@@ -223,18 +228,20 @@ class BatchNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, as flax's ``nn.LayerNorm(epsilon=1e-5)``:
-    float32 statistics, float32 normalisation, the result in x's dtype.
-    Parameters are ``nn.LayerNorm``'s ``weight`` and ``bias``."""
+    """LayerNorm over the last axis, as flax's ``nn.LayerNorm(epsilon=eps)``
+    (1e-5 by default): float32 statistics, float32 normalisation, the
+    result in x's dtype. Parameters are ``nn.LayerNorm``'s ``weight`` and
+    ``bias``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
         mean, var = _stats(x, -1)
-        y = (x - mean[..., None]) * (torch.rsqrt(var + LN_EPS)[..., None] * self.weight)
+        y = (x - mean[..., None]) * (torch.rsqrt(var + self.eps)[..., None] * self.weight)
         return (y + self.bias).to(x.dtype)
 
 
