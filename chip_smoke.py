@@ -5,12 +5,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 Phases, each printing a line, any failure raising (exit code != 0):
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
-  2. build the nine kernel sources (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
+  2. build the ten kernel sources (csrc/nat_fwd.cu, nat_bwd.cu, rc_dw_gelu.cu,
      rc_stats.cu, rc_fused.cu, nat_kernel.cu, upsample_flat.cu,
-     natt_flat.cu, bn_train.cu) with nvcc for sm_90a, one process per source, all
-     started together; print ptxas's registers and spills of nat_fwd's,
-     nat_bwd's, rc_fused's, rc_dw_gelu's, rc_stats's, natt_flat's,
-     nat_kernel's and upsample_flat's kernels and the number of HMMA/HGMMA
+     natt_flat.cu, bn_train.cu, layer_norm.cu) with nvcc for sm_90a, one process
+     per source, all started together; print ptxas's registers and spills of
+     every source's kernels and the number of HMMA/HGMMA
      (tensor-core) instructions in rc_fused's and natt_flat's libraries
      (cuobjdump, where it is found);
   3. the forward kernel against its plain PyTorch version, in float32
@@ -299,6 +298,30 @@ Phases, each printing a line, any failure raising (exit code != 0):
      phase name; the children of phases 20-23 as ``ddp_ranks``, ``ddp_cli``,
      ``spatial_ranks``, ``convergence_draws``, ``multihost_ranks``), each
      training path's above 0.
+ 26. the LayerNorm kernels (csrc/layer_norm.cu, ops/layer_norm.py) at the
+     LayerNorm shapes of the two train cells: SegFormer-B5's at 1024^2, B=8
+     (its four stage widths 64/128/320/512 on the stages' maps, and the
+     reductions' 64/128/320 on their 32^2 maps: 161 a forward) and LM-Net's
+     at 256^2, B=128 (the NATT blocks' 12/24/48/96, the GFT's 372: 10 a
+     forward), bf16: y, dx, dweight and dbias against the plain version on
+     the inputs' float32 copies (the tolerances of
+     tests/test_torch_layer_norm.py), their launches
+     counted; each shape's forward and forward + backward timed as CUDA
+     graphs for the kernels, the plain version and F.layer_norm (the
+     one-call yardstick, which the port never calls), each beside its byte
+     bound (x read and y written once a forward, dy and x read and dx
+     written once a backward) and as a share of it, and summed over a step
+     of each cell (every LayerNorm forward and backward once). Then the
+     main path's launches, counted exactly (``ln_main_path``): a bf16 256^2
+     LM-Net train_step (B=2) launches 10 forwards and 10 backwards;
+     SegFormer-B5 at B=1, 256^2, bf16, 161 and 161 in an eager forward and
+     backward (train=False), 3 x 161 and 2 x 161 in its first graphed train
+     step (a pass without gradients, the warm-up, the capture) and none in
+     the second (the graphs replay). The kernels line's ``launches_by_path``
+     for layer_norm holds those counts, the phase's own checks and timing
+     captures ('phase_26'), and the launches of every training phase of
+     this process by phase name (the children of phases 20-23 are not
+     counted), each of phases 8, 18, 24 and 25 above 0.
 
 Each kernel's bound is the least time the card could take for its work at
 the inputs it was timed on: the largest of its bytes (each input read once,
@@ -367,7 +390,7 @@ DW_SHAPES = ([(2, h, w, 2 * c) for h, w, c in STAGES_256]
              + [(2, 5, 5, 48), (2, 28, 28, 20), (2, 32, 7, 48)])
 RC_KERNELS = ("rc_dw_gelu", "rc_stats", "rc_fused")
 KERNELS = ("nat_fwd", "nat_bwd", *RC_KERNELS, "nat_kernel", "upsample_flat", "natt_flat",
-           "bn_train")
+           "bn_train", "layer_norm")
 # H100 SXM: HBM3 bytes per second; float32 operations per second outside
 # the tensor cores; bf16 operations per second on the tensor cores, dense
 # (NVIDIA's data sheet)
@@ -2813,6 +2836,14 @@ def _bn_total() -> int:
     return _BN_DROPPED[0] + _bn_launches(_read_counters())
 
 
+def _ln_total() -> int:
+    """The LayerNorm kernels' forwards and backwards in this process since
+    it started."""
+    from lmnet_tpu_torch.ops.layer_norm import layer_norm, layer_norm_backward
+
+    return layer_norm.launches + layer_norm_backward.launches
+
+
 def _read_counters() -> dict:
     return {k: fn.launches for k, fn in _kernel_counters().items()}
 
@@ -4507,7 +4538,7 @@ def _bn_case(B, H, C, dtype, dev, seed=0):
     return x, dy, w, b
 
 
-def _bn_fwd_bwd(fn, x, dy, w, b):
+def _fwd_bwd(fn, x, dy, w, b):
     """(y, dx, dw, db) of ``fn(x, w, b) -> y`` and its autograd backward."""
     xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
     y = fn(xr, wr, br)
@@ -4515,7 +4546,7 @@ def _bn_fwd_bwd(fn, x, dy, w, b):
     return y, xr.grad, wr.grad, br.grad
 
 
-def _bn_graph_ms(fn, x, dy, w, b) -> tuple[float, float]:
+def _fwd_bwd_graph_ms(fn, x, dy, w, b) -> tuple[float, float]:
     """(forward, forward + backward) device milliseconds of ``fn(x, w, b)
     -> y`` and its autograd backward, each captured 4 times in a CUDA graph
     (the host's launch and autograd time out of it)."""
@@ -4554,8 +4585,8 @@ def bn_against_plain(x, dy, w, b, where) -> float:
     worst |y|, |dx| error."""
     from lmnet_tpu_torch.ops.bn_train import batch_norm_train, batch_norm_train_plain
 
-    got = _bn_fwd_bwd(_bn_kernel, x, dy, w, b)
-    want = _bn_fwd_bwd(_bn_plain, x, dy, w, b)
+    got = _fwd_bwd(_bn_kernel, x, dy, w, b)
+    want = _fwd_bwd(_bn_plain, x, dy, w, b)
     with torch.no_grad():
         _, mean, var = batch_norm_train(x, w, b, BN_EPS)
         _, wmean, wvar = batch_norm_train_plain(x, w, b, BN_EPS)
@@ -4638,7 +4669,7 @@ def phase_bn_train(dev, card_line) -> dict:
         work.add(count * (nfwd * 2 * nbytes + 3 * nbytes), count * (nfwd * 4 + 8) * x.numel())
         row = {"H": H, "C": C, "forwards": nfwd, "bns": count}
         for name, fn in (("kernel", _bn_kernel), ("plain", _bn_plain), ("library", library)):
-            f_ms, fb_ms = _bn_graph_ms(fn, x, dy, w, b)
+            f_ms, fb_ms = _fwd_bwd_graph_ms(fn, x, dy, w, b)
             row[name] = {"fwd_ms": round(f_ms, 4), "fwd_bwd_ms": round(fb_ms, 4)}
             step[name] += count * ((nfwd - 1) * f_ms + fb_ms)
         row["kernel"]["fwd_GBs"] = round(3 * nbytes / row["kernel"]["fwd_ms"] / 1e6, 1)
@@ -4672,6 +4703,158 @@ def phase_bn_train(dev, card_line) -> dict:
     return {"max_abs_err": worst, "ms": step["kernel"], "plain_ms": step["plain"],
             "library_ms": step["library"], "work": work, "shapes": shapes,
             "launches": {"train_step": sum(launches), "segformer_head": sum(head_launches)}}
+
+
+# phase 26: (rows an image, C, LayerNorms a forward) of the train cells'
+# LayerNorms, and their batch: SegFormer-B5 at 1024^2 (its stages' maps
+# 256^2 .. 32^2: two a block, the patch embedding's, the stage end's; the
+# reductions' 32^2 maps at sr 8, 4, 2) and LM-Net at 256^2 (two a NATT
+# block at 256^2 .. 32^2, two in the GFT at 16^2)
+LN_CELLS = {
+    "segformer-b5-1024": (8, 1e-6, ((65536, 64, 8), (16384, 128, 14), (4096, 320, 82),
+                                    (1024, 512, 8), (1024, 64, 3), (1024, 128, 6),
+                                    (1024, 320, 40))),
+    "lmnet-256": (128, 1e-5, ((65536, 12, 2), (16384, 24, 2), (4096, 48, 2), (1024, 96, 2),
+                              (256, 372, 2))),
+}
+
+
+def _ln_case(rows, C, dtype, dev, seed=0):
+    """Rows with their own offset, as a residual stream's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    off = torch.linspace(-3.0, 3.0, rows, device=dev)[:, None]
+    x = (torch.randn(rows, C, generator=g, device=dev) * 2 + off).to(dtype)
+    dy = torch.randn(rows, C, generator=g, device=dev).to(dtype)
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    b = torch.rand(C, generator=g, device=dev) - 0.5
+    return x, dy, w, b
+
+
+def ln_against_plain(x, dy, w, b, eps, where) -> float:
+    """The LayerNorm kernels' y, dx, dweight and dbias on bf16 tensors
+    against the plain version's on their float32 copies (the bf16
+    composition rounds two partial gradients of x before it adds them;
+    tests/test_torch_layer_norm.py's tolerances: y and dx within a bf16
+    rounding, 2**-8 of the entry, plus 1e-4 of the largest; dweight and
+    dbias within 1e-4 of the largest); the worst |y|, |dx| error."""
+    from lmnet_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+
+    got = _fwd_bwd(lambda *a: layer_norm(*a, eps), x, dy, w, b)
+    want = _fwd_bwd(lambda *a: layer_norm_plain(*a, eps), x.float(), dy.float(), w, b)
+    worst = 0.0
+    for name, gt, wt in zip(("y", "dx", "dweight", "dbias"), got, want):
+        err = (gt.float() - wt).abs()
+        top = wt.abs().max().item()
+        if name in ("y", "dx"):
+            worst = max(worst, err.max().item())
+            ok = bool((err <= 2**-8 * wt.abs() + 1e-4 * top).all())
+        else:
+            ok = err.max().item() <= 1e-4 * top
+        check(ok, f"phase 26: layer_norm {name} {where}: {err.max().item()} (largest {top})")
+    return worst
+
+
+def ln_main_path(dev) -> dict:
+    """The LayerNorm kernels' (forwards, backwards) on the main path
+    (phase 26; see the module docstring), each checked exactly."""
+    from lmnet_tpu_torch.metrics import ConfusionAccumulator
+    from lmnet_tpu_torch.models import LMNet, SegFormer
+    from lmnet_tpu_torch.ops.layer_norm import layer_norm, layer_norm_backward
+    from lmnet_tpu_torch.train import create_train_state, train_step
+
+    def counted(fn):
+        before = (layer_norm.launches, layer_norm_backward.launches)
+        fn()
+        torch.cuda.synchronize()
+        return (layer_norm.launches - before[0], layer_norm_backward.launches - before[1])
+
+    got = {}
+    model = LMNet(generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                  rc_remat=True)
+    state = create_train_state(model, (2, 256, 256, 3), seed=0, device=dev)
+    x = torch.randn(2, 256, 256, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    got["lmnet_train_step"] = counted(lambda: train_step(
+        state, x, (x.mean(-1) > 0).long(), ConfusionAccumulator.init(2, dev)))
+    del model, state
+    seg = SegFormer(generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16).to(dev)
+    x = torch.randn(1, 256, 256, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def step(train):
+        seg(x, train=train, generator=gen).sum().backward()
+
+    got["segformer_eager"] = counted(lambda: step(False))
+    got["segformer_graphed_first"] = counted(lambda: step(True))
+    got["segformer_graphed_replay"] = counted(lambda: step(True))
+    del seg
+    torch.cuda.empty_cache()
+    n = 161  # SegFormer-B5's: 104 in the blocks, 49 after the reductions, 4 + 4
+    want = {"lmnet_train_step": (10, 10), "segformer_eager": (n, n),
+            "segformer_graphed_first": (3 * n, 2 * n), "segformer_graphed_replay": (0, 0)}
+    check(got == want, f"phase 26: layer_norm launches on the main path {got}, want {want}")
+    print(f"phase 26: layer_norm (forwards, backwards) on the main path: {json.dumps(got)}")
+    return {k: sum(v) for k, v in got.items()}
+
+
+def phase_layer_norm(dev, card_line) -> dict:
+    """Phase 26: the LayerNorm kernels against the plain version and timed
+    at the train cells' shapes (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from lmnet_tpu_torch.ops.layer_norm import layer_norm, layer_norm_backward, layer_norm_plain
+
+    main_path = ln_main_path(dev)
+    worst, work, shapes, steps = 0.0, Work(), [], {}
+    before = (layer_norm.launches, layer_norm_backward.launches)
+    checks = 0
+    for cell, (B, eps, cases) in LN_CELLS.items():
+        step = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+
+        def library(x, w, b, eps=eps):  # F.layer_norm, its affine in x's dtype
+            return F.layer_norm(x, x.shape[-1:], w.to(x.dtype), b.to(x.dtype), eps)
+
+        fns = (("kernel", lambda x, w, b, eps=eps: layer_norm(x, w, b, eps)),
+               ("plain", lambda x, w, b, eps=eps: layer_norm_plain(x, w, b, eps)),
+               ("library", library))
+        for rows, C, count in cases:
+            x, dy, w, b = _ln_case(B * rows, C, torch.bfloat16, dev, seed=rows + C)
+            worst = max(worst, ln_against_plain(x, dy, w, b, eps,
+                                                f"at {cell} B={B} rows={rows} C={C}"))
+            checks += 1
+            nbytes = x.numel() * x.element_size()
+            work.add(count * 5 * nbytes, count * 20 * x.numel())
+            bound_fwd, bound_bwd = 2 * nbytes / HBM_RATE * 1e3, 3 * nbytes / HBM_RATE * 1e3
+            row = {"cell": cell, "rows": B * rows, "C": C, "count": count,
+                   "bound_fwd_ms": round(bound_fwd, 5), "bound_bwd_ms": round(bound_bwd, 5)}
+            for name, fn in fns:
+                f_ms, fb_ms = _fwd_bwd_graph_ms(fn, x, dy, w, b)
+                row[name] = {"fwd_ms": round(f_ms, 5), "fwd_bwd_ms": round(fb_ms, 5),
+                             "fwd_share": round(100 * bound_fwd / f_ms, 1),
+                             "bwd_share": round(100 * bound_bwd / (fb_ms - f_ms), 1)}
+                step[name] += count * fb_ms
+            step["bound"] += count * (bound_fwd + bound_bwd)
+            shapes.append(row)
+            print(f"phase 26: layer_norm {json.dumps(row)}")
+            del x, dy
+            torch.cuda.empty_cache()
+        steps[cell] = {k: round(v, 4) for k, v in step.items()}
+        print(f"phase 26: {cell}'s LayerNorms a B={B} step, each forward and backward once "
+              f"[{card_line}]: kernels {step['kernel']:.3f} ms, bound {step['bound']:.3f} ms "
+              f"(bytes; {100 * step['bound'] / step['kernel']:.1f} % of it), plain "
+              f"{step['plain']:.3f} ms, F.layer_norm {step['library']:.3f} ms")
+    torch.cuda.synchronize()
+    # the checks' own launches; the timing's captures count once more each
+    launches = (layer_norm.launches - before[0], layer_norm_backward.launches - before[1])
+    check(launches[0] >= checks and launches[1] >= checks,
+          f"phase 26: layer_norm launches {launches} for {checks} checked shapes")
+    print(f"phase 26: layer_norm against the plain version at {checks} shapes (bf16): y, dx, "
+          f"dweight, dbias within tolerance; worst |y|, |dx| error {worst:.3g}; launches "
+          f"{launches[0]} forwards, {launches[1]} backwards")
+    return {"max_abs_err": worst, "ms": sum(s["kernel"] for s in steps.values()),
+            "plain_ms": sum(s["plain"] for s in steps.values()),
+            "library_ms": sum(s["library"] for s in steps.values()), "work": work,
+            "shapes": shapes, "steps": steps,
+            "launches": {**main_path, "phase_26": sum(launches)}}
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -4749,7 +4932,7 @@ def main() -> int:
           f"{', '.join(_build.library_path(n).name for n in KERNELS)} "
           f"in {time.perf_counter() - t0:.2f}s")
     for name in ("nat_fwd", "nat_bwd", "rc_fused", "rc_dw_gelu", "rc_stats", "natt_flat",
-                 "nat_kernel", "upsample_flat", "bn_train"):
+                 "nat_kernel", "upsample_flat", "bn_train", "layer_norm"):
         for line in ptxas_report(logs.get(name, "")) or ["(built earlier; no report)"]:
             print(f"phase 2: ptxas {name}.cu {line}")
     for name in ("rc_fused", "natt_flat"):
@@ -4758,17 +4941,22 @@ def main() -> int:
     seconds = {"2": round(time.perf_counter() - t0, 1)}
 
     bn_paths = {}  # the BatchNorm kernels' launches in this process, by phase
+    ln_paths = {}  # the LayerNorm kernels' likewise
 
     def timed(n, fn, *args):
         """``fn(*args)``, its wall seconds kept as phase ``n``'s, and the
-        BatchNorm kernels' launches in this process under its name."""
+        BatchNorm and LayerNorm kernels' launches in this process under its
+        name."""
         t = time.perf_counter()
-        bn0 = _bn_total()
+        bn0, ln0 = _bn_total(), _ln_total()
         out = fn(*args)
         seconds[str(n)] = round(time.perf_counter() - t, 1)
-        bn_n = _bn_total() - bn0
+        bn_n, ln_n = _bn_total() - bn0, _ln_total() - ln0
+        name = fn.__name__.removeprefix("phase_")
         if bn_n and n != 25:  # phase 25 reports its own
-            bn_paths[fn.__name__.removeprefix("phase_")] = bn_n
+            bn_paths[name] = bn_n
+        if ln_n and n != 26:  # phase 26 likewise
+            ln_paths[name] = ln_n
         return out
 
     worst = timed(3, phase_kernel_vs_plain, dev)
@@ -4807,6 +4995,7 @@ def main() -> int:
     multihost = timed(23, phase_multihost, dev, card_line, ddp.pop("refs"))
     bench = timed(24, phase_bench, dev, card_line)
     bn = timed(25, phase_bn_train, dev, card_line)
+    ln = timed(26, phase_layer_norm, dev, card_line)
     # the BatchNorm kernels on every training path: this process's phases,
     # and the children of phases 20-23 (their ranks, CLI runs and draws)
     bn["launches"].update(bn_paths, ddp_ranks=ddp["bn"]["ddp"], ddp_cli=ddp["bn"]["ddp_cli"],
@@ -4818,6 +5007,11 @@ def main() -> int:
     check(all(bn["launches"].get(k, 0) > 0 for k in need)
           and all(v >= 0 for v in bn["launches"].values()),
           f"a training path never launched the BatchNorm kernels: {bn['launches']}")
+    ln["launches"].update(ln_paths)
+    print(f"chip_smoke: layer_norm launches by path {json.dumps(ln['launches'])}")
+    check(all(ln["launches"].get(k, 0) > 0
+              for k in ("flat_vs_plain_step", "model_options", "bench", "bn_train")),
+          f"a training path never launched the LayerNorm kernels: {ln['launches']}")
     convergence, multihost = convergence["launches"], multihost["launches"]
     new_paths = {
         "nat_fwd": {"natt_remat": options["launches"]["natt_remat"]["nat_fwd"],
@@ -4913,6 +5107,8 @@ def main() -> int:
               b8_launches, b8, b8_work, unfused_ms=b8["unfused_ms"], ms_by_stage=b8_stages),
         entry("bn_train", "bn_train.cu", None, sum(bn["launches"].values()), bn, bn["work"],
               launches_by_path=bn["launches"], ms_by_shape=bn["shapes"]),
+        entry("layer_norm", "layer_norm.cu", None, sum(ln["launches"].values()), ln, ln["work"],
+              launches_by_path=ln["launches"], ms_by_shape=ln["shapes"], ms_by_step=ln["steps"]),
     ]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from lmnet_tpu_torch.ops.bn_train import batch_norm_train, bn_normalize
+from lmnet_tpu_torch.ops.layer_norm import layer_norm
 from lmnet_tpu_torch.ops.nat import neighborhood_attention
 from lmnet_tpu_torch.ops.nat_flat import nat_flat
 from lmnet_tpu_torch.ops.nat_kernel import neighborhood_attention_pallas
@@ -175,15 +176,6 @@ class Dense(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
-def _stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """flax's ``_compute_stats``: float32 mean and biased variance
-    E[x^2] - E[x]^2, clamped at 0."""
-    xf = x.float()
-    mean = xf.mean(dim=dims)
-    var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
-    return mean, var
-
-
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis of an NHWC tensor, as flax's
     ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.
@@ -231,7 +223,8 @@ class LayerNorm(nn.Module):
     """LayerNorm over the last axis, as flax's ``nn.LayerNorm(epsilon=eps)``
     (1e-5 by default): float32 statistics, float32 normalisation, the
     result in x's dtype. Parameters are ``nn.LayerNorm``'s ``weight`` and
-    ``bias``."""
+    ``bias``. ``ops/layer_norm.py``: the hand-written kernels on a CUDA
+    tensor, the plain float32 composition on a CPU one."""
 
     def __init__(self, dim: int, eps: float = LN_EPS):
         super().__init__()
@@ -240,9 +233,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        mean, var = _stats(x, -1)
-        y = (x - mean[..., None]) * (torch.rsqrt(var + self.eps)[..., None] * self.weight)
-        return (y + self.bias).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def dropout_keep(shape, p: float, generator: torch.Generator | None,

@@ -36,7 +36,7 @@ from lmnet_tpu_torch.data import SyntheticDataset, make_loader
 from lmnet_tpu_torch.metrics import ConfusionAccumulator
 from lmnet_tpu_torch.models import LMNet as TLMNet
 from lmnet_tpu_torch.models import blocks as t_blocks
-from lmnet_tpu_torch.models.blocks import _stats
+from lmnet_tpu_torch.ops.layer_norm import _stats
 from lmnet_tpu_torch.parallel import batch as pbatch
 from lmnet_tpu_torch.parallel import dist_utils
 from lmnet_tpu_torch.parallel.mesh import make_mesh, shard_rows

@@ -31,6 +31,7 @@ from lmnet_tpu_torch.metrics import ConfusionAccumulator  # noqa: E402
 from lmnet_tpu_torch.models import LMNet, SegFormer, blocks  # noqa: E402
 from lmnet_tpu_torch.models import segformer as seg  # noqa: E402
 from lmnet_tpu_torch.ops import bn_train  # noqa: E402
+from lmnet_tpu_torch.ops.layer_norm import _stats  # noqa: E402
 from lmnet_tpu_torch.train import create_train_state, train_step  # noqa: E402
 
 # the tiny widths: every stage's kind of block (sr 8/4/2/1), head_dim 8
@@ -172,7 +173,7 @@ def test_each_span_opens_as_often_as_stated(monkeypatch):
 
 def _old_layer_norm(self, x):
     """``LayerNorm.forward`` before ``eps`` was a field: the module's LN_EPS."""
-    mean, var = blocks._stats(x, -1)
+    mean, var = _stats(x, -1)
     y = (x - mean[..., None]) * (torch.rsqrt(var + blocks.LN_EPS)[..., None] * self.weight)
     return (y + self.bias).to(x.dtype)
 
